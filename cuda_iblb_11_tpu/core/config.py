@@ -54,8 +54,8 @@ class SimConfig:
     ydim: int = 192          # channel height (main.cu:271)
 
     # New-framework options (no reference counterpart).
-    # "float32" (production), "bfloat16" (fast), "float64" (high-precision
-    # opt-in: real f64 on CPU, XLA's f32x2 double-single emulation on TPU).
+    # "float32" (production), "bfloat16" (fast), "float64" (the
+    # reference's own precision; native on the CPU and the GPU).
     dtype: str = "float32"
     flux_column_offset: int = 5  # flux measured at x = XDIM - 5 (ImmersedBoundary.cu:259)
     # "raw": state.f holds the distributions f_i (like the reference).

@@ -1,7 +1,7 @@
 """State pytrees.
 
 The reference keeps AoS arrays ``f[9*j+i]`` plus separate ``u, rho, force``
-device buffers (main.cu:414-459).  TPU-first layout is planar SoA:
+device buffers (main.cu:414-459).  The layout here is planar SoA:
 
     f      [9, Y, X]   distribution functions
     force  [2, Y, X]   Eulerian IB body force (recomputed every step by spread)
@@ -12,7 +12,7 @@ device buffers (main.cu:414-459).  TPU-first layout is planar SoA:
 
 ``rho`` and the corrected velocity are *not* state: they are exact functions
 of (f, force) and are recomputed where needed, which removes 12 bytes/cell of
-HBM traffic from the hot loop.
+memory traffic from the hot loop.
 """
 
 from __future__ import annotations

@@ -168,8 +168,8 @@ def load_orbax(path: str, cfg: SimConfig | None = None,
             except Exception:  # noqa: BLE001 — orbax's mismatch error type
                 # Force-layout mismatch between the SAVING sim and this
                 # one: the force is band-only [2, band, X] for the
-                # single-device/pallas layouts but full [2, Y, X] for the
-                # jnp sharded layout.  Retry with the alternate saved
+                # single-device layout but full [2, Y, X] for the
+                # sharded layout.  Retry with the alternate saved
                 # shape (replicated), then adapt onto this sim's layout.
                 band = saved_cfg.force_band
                 cur = target["force"].shape[1]

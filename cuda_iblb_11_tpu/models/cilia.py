@@ -117,7 +117,7 @@ class CiliaModel:
         # High-precision dtype for the kinematics: the Fourier sums are
         # scaled by 111, so f32 summation noise alone is ~1e-4 lattice units
         # on the node positions.  The arrays are O(c_num*96) — negligible
-        # even with emulated f64 on TPU — and the results are handed to the
+        # in f64 — and the results are handed to the
         # f32 fluid as (integer anchor, sub-cell fraction) pairs so no
         # precision is lost in the cast (see anchored_nodes).  f64 is used
         # via the scoped jax.enable_x64 context so the f32 fluid kernels
@@ -171,9 +171,9 @@ class CiliaModel:
             [jnp.array([0.5], self.hp), jnp.ones((6,), self.hp)])
         pos = BEAT_SCALE * (
             jnp.einsum("jnc,mn->mjc", self.a_pre, cosn * scale[None],
-           precision=jax.lax.Precision.HIGH)
+           precision=jax.lax.Precision.HIGHEST)
             + jnp.einsum("jnc,mn->mjc", self.b_pre, sinn * scale[None],
-             precision=jax.lax.Precision.HIGH)
+             precision=jax.lax.Precision.HIGHEST)
         )
         pos = pos.at[:, :, 0].add(self.offsets[:, None])
         return pos
@@ -209,9 +209,9 @@ class CiliaModel:
             n * half_dif[:, None])
         vel = BEAT_SCALE * (
             jnp.einsum("jnc,mn->mjc", self.a_pre, dcos,
-           precision=jax.lax.Precision.HIGH)
+           precision=jax.lax.Precision.HIGHEST)
             + jnp.einsum("jnc,mn->mjc", self.b_pre, dsin,
-             precision=jax.lax.Precision.HIGH)
+             precision=jax.lax.Precision.HIGHEST)
         )
         return vel
 
@@ -267,19 +267,6 @@ class CiliaModel:
         anchor = jnp.rint(ab)
         frac = (ab - anchor).astype(self.dtype)
         return anchor.astype(jnp.int32), frac
-
-    def beat_x_bound(self) -> float:
-        """Rigorous upper bound on |beat-frame x| over ALL phases, per node,
-        maximized over nodes:  |x(arcl, phi)| = 111*|a0/2 + sum a_n cos +
-        b_n sin| <= 111*(|a0|/2 + sum_n sqrt(a_n^2 + b_n^2)) by
-        Cauchy-Schwarz on each harmonic.  Used to prove every cilium's
-        delta support stays inside its own c_space-wide window (the
-        windowed IB fast path, ops/pallas_step.make_band_super_substep)."""
-        a = np.asarray(self.a_pre, np.float64)[:, :, 0]  # [nodes, 7] x-coord
-        b = np.asarray(self.b_pre, np.float64)[:, :, 0]
-        per_node = np.abs(a[:, 0]) / 2.0 + np.sqrt(
-            a[:, 1:] ** 2 + b[:, 1:] ** 2).sum(axis=1)
-        return float(BEAT_SCALE * per_node.max())
 
     def boundary_state(self, it, lasts):
         """Full cilia substep: kinematics -> placement -> mask."""

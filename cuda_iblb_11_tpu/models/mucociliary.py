@@ -17,8 +17,9 @@ One jitted ``step`` reproduces the reference's 8-kernel per-iteration pipeline
      cumulative flux increment Q += sum_col u_x / 192 (never reset,
      main.cu:393)
 
-The LB sub-step is pluggable: 'jnp' (oracle, any dtype) or 'pallas' (fused
-TPU kernel).
+The LB sub-step is pluggable: 'jnp' (the XLA path, any dtype) or 'triton'
+(the fused Pallas kernel of ops/pallas_step.py, GPU only); resolve_backend
+makes the choice.
 """
 
 from __future__ import annotations
@@ -35,38 +36,44 @@ from cuda_iblb_11_tpu.ops import ib, ib_band
 from cuda_iblb_11_tpu.ops import reference as ref
 
 
-def prep_band_super_points(cfg, K, halo, aux_dtype, u_s, eps, anchor, frac,
-                           n_super):
-    """Reshape per-step point data [n, Ns, ...] into the band
-    super-kernel's layout (ops/pallas_step.make_band_super_substep):
-    per-cilium 128-point blocks (nodes padded 96->128 with inert values),
-    x anchors WINDOW-LOCAL (anchor_x - (m*c_space - halo)), split
-    [n_super, K, ...].  Shared by the single-chip temporal path and the
-    sharded communication-avoiding path (parallel/sharded)."""
-    n = n_super * K
-    c, ln = cfg.c_num, cfg.length
-    pad = 128 - ln
+KERNEL_DTYPES = ("float32", "bfloat16")
 
-    def blk(x, fill):
-        x = x.reshape((n, c, ln) + x.shape[2:])
-        widths = [(0, 0), (0, 0), (0, pad)] + [(0, 0)] * (x.ndim - 3)
-        return jnp.pad(x, widths, constant_values=fill)
 
-    wstart = (jnp.arange(c, dtype=jnp.int32) * cfg.c_space
-              - jnp.int32(halo))[None, :, None]
-    axl = blk(anchor[..., 0], 0) - wstart
-    axl = jnp.where(
-        jnp.arange(128)[None, None, :] < ln, axl, jnp.int32(-20000))
-    ay = blk(anchor[..., 1], -20000)
-    fx = blk(frac[..., 0], 0.0)
-    fy = blk(frac[..., 1], 0.0)
-    us = jnp.moveaxis(blk(u_s, 0.0), -1, 1)     # [n, 2, c, 128]
-    ep = blk(eps.astype(aux_dtype), 0.0)
+def resolve_backend(requested: str, platform: str, cfg: SimConfig, dtype,
+                    walls: ref.WallSpec = ref.REFERENCE_WALLS,
+                    interpret: bool = False):
+    """The LB backend for one run, and why: ``(backend, reason)``.
 
-    def rs(x):
-        return x.reshape((n_super, K) + x.shape[1:])
-
-    return tuple(rs(x) for x in (us, ep, axl, fx, ay, fy))
+    ``requested`` is "auto", "jnp" or "triton"; ``platform`` is
+    ``jax.default_backend()``.  "auto" takes the fused kernel where it can
+    compile (gpu) and covers the run (f32/bf16 storage, the reference
+    channel's walls): on an H100 it beat the jnp path at 2048^2 and at
+    288x192 (PERF.md).  float64 runs the jnp path.  An explicit "triton"
+    where the kernel cannot run is an error; interpret mode is only ever
+    asked for explicitly (``interpret=True``, for tests)."""
+    dtype = str(jnp.dtype(dtype))
+    blockers = []
+    if platform != "gpu" and not interpret:
+        blockers.append(f"platform is {platform}; the fused kernel "
+                        "compiles only for gpu")
+    if not (walls.left == "periodic" and walls.bottom == "noslip"
+            and walls.top in ("slip", "noslip")):
+        blockers.append("walls other than the reference channel")
+    if requested == "jnp":
+        return "jnp", None
+    if requested == "triton":
+        if blockers:
+            raise ValueError("backend 'triton' cannot run here: "
+                             + "; ".join(blockers))
+        return "triton", None
+    if requested != "auto":
+        raise ValueError(f"unknown backend {requested!r}")
+    if dtype not in KERNEL_DTYPES:
+        # the reference's own precision: the XLA path, native on the GPU
+        blockers.append(f"dtype {dtype} runs the jnp path")
+    if blockers:
+        return "jnp", "auto: " + "; ".join(blockers)
+    return "triton", f"auto: {platform}, {dtype}, {cfg.ydim}x{cfg.xdim}"
 
 
 class MucociliarySim:
@@ -78,29 +85,18 @@ class MucociliarySim:
         pattern: str = "no_mucus",
         forcing: str = "trt_split",
         dtype=None,
-        temporal: int = 1,
         ib_x_edge: str = "periodic",
+        interpret: bool = False,
     ):
-        """forcing: "trt_split" (default; TRT-consistent Guo forcing, stable
+        """backend: "jnp", "triton" or "auto" (resolve_backend; the pick and
+        its reason land in resolved_config() and SimLog).  interpret runs
+        the triton kernel in Pallas interpret mode (tests only).
+
+        forcing: "trt_split" (default; TRT-consistent Guo forcing, stable
         at the reference's default parameters) or "reference" (the committed
         CUDA's uniform (1-1/(2 TAU)) prefactor, which amplifies the effective
         IB force ~1.75x and is linearly unstable for dense boundary nodes —
         see ops/reference.py:guo_forcing and tests/test_stability.py).
-
-        temporal: K > 1 enables K-step temporal blocking in run_chunk
-        (pallas backend only): the force-free bulk rows above the IB band
-        advance K steps per HBM pass (ops/pallas_step.make_temporal_bulk_
-        substep) while the band region + IB coupling step normally —
-        identical physics, ~K-fold lower HBM traffic on the bulk.
-        "auto" picks the largest eligible K from (16, 8, 4, 2) on the
-        pallas backend (falling to 1 when none fits or on other
-        backends); the pick and its reason land in resolved_config() and
-        SimLog.  NOTE on determinism: auto is a PERF policy, not a
-        physics change — the per-sub-step leg is bit-identical to
-        single-step, and the band-super leg differs only by f32
-        re-association (~3.5e-6 rel-L2 at 2,048 steps, see bench diag);
-        runs needing bit-stability across versions should pin an
-        explicit K.
 
         ib_x_edge: "periodic" (default; physically-correct periodic wrap
         of the IB stencil in x) or "reference" (quirk-exact strict-parity
@@ -122,100 +118,30 @@ class MucociliarySim:
                 "(--dtype float64 enables it), or set "
                 "jax.config.update('jax_enable_x64', True) / use the "
                 "scoped jax.enable_x64(True) context before constructing "
-                "the sim.  On TPU the f64 path runs the jnp backend under "
-                "XLA's native f32x2 (double-single) emulation — see "
-                "docs/DESIGN.md 'High-precision mode'.")
+                "the sim.")
         # boundary/IB quantities stay >= f32 even with bf16 fluid storage
         self.aux_dtype = jnp.promote_types(self.dtype, jnp.float32)
         self.cilia = CiliaModel(cfg, dtype=self.aux_dtype, pattern=pattern)
-        self.backend_reason = None
-        if backend == "auto":
-            # fused Pallas kernel where it applies; jnp oracle otherwise.
-            # Each failed predicate is recorded so the run artifacts can
-            # say WHY auto fell back (e.g. the reference's own default
-            # arguments, main.cu:267-296 -> XDIM=288, fail the 128-lane
-            # alignment and route to the jnp oracle).
-            reasons = []
-            if jax.default_backend() != "tpu":
-                reasons.append(
-                    f"platform is {jax.default_backend()}, not tpu")
-            if cfg.xdim % 128:
-                reasons.append(f"xdim={cfg.xdim} is not a multiple of 128")
-            if cfg.ydim % 8:
-                reasons.append(f"ydim={cfg.ydim} is not a multiple of 8")
-            if self.dtype not in (jnp.float32, jnp.bfloat16):
-                reasons.append(f"dtype {self.dtype} (pallas kernel is "
-                               "f32/bf16 only)")
-            if not (walls.left == "periodic" and walls.bottom == "noslip"
-                    and walls.top in ("slip", "noslip")):
-                reasons.append("non-reference wall spec")
-            backend = "jnp" if reasons else "pallas"
-            self.backend_reason = ("auto: " + "; ".join(reasons)
-                                   if reasons else "auto: eligible")
-        if (backend == "pallas" and jax.default_backend() == "tpu"
-                and self.dtype not in (jnp.float32, jnp.bfloat16)):
-            # interpret-mode (CPU) pallas runs f64 fine and the equivalence
-            # tests rely on it; Mosaic on real TPU does not
-            raise ValueError(
-                f"the pallas backend is f32/bf16 only on TPU (got "
-                f"{self.dtype}); float64 runs the jnp backend — on TPU "
-                "under XLA's native f32x2 (double-single) emulation, "
-                "~1e-11-class full-beat agreement with the CPU f64 oracle "
-                "(validation/f64_tpu.json)")
-        self.backend = backend
+        self.pattern = pattern
+        self._interpret = interpret
+        self.backend, self.backend_reason = resolve_backend(
+            backend, jax.default_backend(), cfg, self.dtype, walls,
+            interpret)
         self.storage = cfg.storage_resolved
-        self.temporal_requested = temporal
-        self.temporal_reason = None
-        if temporal == "auto":
-            # resolved in the backend branch below (needs the substep
-            # factories); provisional 1 covers the non-pallas backends
-            self.temporal = 1
-            if backend != "pallas":
-                self.temporal_reason = (
-                    f"auto: backend {backend!r} has no temporal path")
-        else:
-            self.temporal = int(temporal)
-        if self.temporal > 1 and backend != "pallas":
-            raise ValueError("temporal blocking requires the pallas backend")
         if ib_x_edge not in ("periodic", "reference"):
             raise ValueError(f"unknown ib_x_edge {ib_x_edge!r}")
         self.ib_x_edge = ib_x_edge
         # With the band-matmul IB path the fused kernel also emits the band
-        # moments and flux-column partials from its in-register streamed
-        # planes (emit_moments), so the step never re-reads f_new from HBM.
-        self._emit = backend == "pallas" and ib_x_edge == "periodic"
-        if backend == "pallas":
+        # moments, so the step never reads f_new back for them.
+        self._emit = self.backend == "triton" and ib_x_edge == "periodic"
+        if self.backend == "triton":
             from cuda_iblb_11_tpu.ops.pallas_step import make_fused_substep
 
             self._lb_substep = make_fused_substep(
                 cfg, walls, self.dtype, forcing=forcing,
-                storage=self.storage, emit_moments=self._emit)
-            if self.temporal_requested == "auto":
-                # largest eligible K wins: the K=16 window amortizes the
-                # bulk HBM pass best (bench diag; K>16 probed negative —
-                # VMEM rings), and each failed candidate falls through to
-                # the next until the single-step path remains
-                err = None
-                for K in (16, 8, 4, 2):
-                    try:
-                        self._setup_temporal(K, walls, pattern)
-                        self.temporal_reason = (
-                            f"auto: K={K} (largest eligible)")
-                        break
-                    except ValueError as e:
-                        err = e
-                else:
-                    self.temporal = 1
-                    self.temporal_reason = f"auto: no eligible K ({err})"
-                    # a partially-failed _setup_temporal attempt may have
-                    # left band-leg state from a K whose super factory
-                    # succeeded before pick_band_leg_tile raised; every
-                    # consumer gates on temporal > 1, but carry no state
-                    # from rejected candidates
-                    self._band_super = None
-            elif self.temporal > 1:
-                self._setup_temporal(self.temporal, walls, pattern)
-        elif backend == "jnp":
+                storage=self.storage, emit_moments=self._emit,
+                interpret=interpret)
+        else:
             def _substep(f, force_band):
                 force = ib_band.pad_band(force_band, cfg.ydim)
                 # compute in >= f32 even with bf16 storage
@@ -225,76 +151,21 @@ class MucociliarySim:
                 return f_new.astype(self.dtype)
 
             self._lb_substep = _substep
-        else:
-            raise ValueError(f"unknown backend {backend!r}")
 
-    def _setup_temporal(self, K: int, walls, pattern: str) -> None:
-        """Build the K-step temporal-blocking machinery (pallas backend).
+    # Sims built from equal arguments compute the same functions, so they
+    # compare equal and share jit-compiled chunks (self is a static jit
+    # argument): a second run of a configuration in one process, as in a
+    # sweep, compiles nothing.
+    def _key(self):
+        return (self.cfg, self.walls, self.backend, self.forcing,
+                str(self.dtype), self.ib_x_edge, self.pattern,
+                self._interpret)
 
-        Raises ValueError when the configuration cannot take ANY K-step
-        leg (grid too small for the ghost trapezoid, no tile fits) —
-        the "auto" resolver in __init__ walks the K ladder on exactly
-        these rejections.  On success sets self.temporal = K."""
-        from cuda_iblb_11_tpu.ops.pallas_step import (
-            make_band_super_substep, make_band_super_substep_tiled,
-            make_sharded_fused_substep, make_temporal_bulk_substep,
-            pick_band_leg_tile,
-        )
+    def __eq__(self, other):
+        return type(other) is type(self) and self._key() == other._key()
 
-        cfg = self.cfg
-        band = cfg.force_band
-        # Preferred band leg: the resident-band super-kernel (ONE
-        # launch for all K band sub-steps + IB coupling, band held
-        # in VMEM).  Falls back to the per-sub-step kernel + XLA IB
-        # when its structural requirements don't hold (c_space not
-        # lane-aligned, >128 nodes, window wider than the domain).
-        self._band_super = None
-        # (the super-kernel's windowed IB is periodic-only; the
-        # strict-parity quirk mode uses the per-sub-step leg with
-        # the stencil forms)
-        if self.ib_x_edge == "periodic":
-            pad_s = -(-K // 8) * 8
-            for factory, leg in (
-                    (make_band_super_substep, "band_super_whole"),
-                    (make_band_super_substep_tiled, "band_super_xtiled")):
-                # whole-domain kernel first; the x-tiled variant
-                # when VMEM rejects it (XDIM=8192-class grids)
-                try:
-                    if cfg.ydim - band < pad_s:
-                        raise ValueError("ydim too small for ghost pad")
-                    self._band_super = factory(
-                        cfg, pad_s, K, walls, self.dtype,
-                        forcing=self.forcing, storage=self.storage,
-                        pattern=pattern)
-                    self._band_pad_s = pad_s
-                    self._band_leg = leg
-                    break
-                except ValueError:
-                    self._band_super = None
-        # The band leg runs on an EXTENDED block: the band plus a
-        # `pad`-row throwaway copy of the bulk bottom (the classic
-        # temporal-blocking ghost trapezoid: the kernel's top halo
-        # is garbage, contaminating one pad row per sub-step from
-        # the top, so pad >= K keeps every band row valid).  The
-        # kernel exposes its row band-1 f1 as the bulk's seam halo
-        # — everything stays inside Mosaic, so the temporal path
-        # remains bit-identical to the single-step kernel.
-        if self._band_super is None:
-            self._band_leg = "per_substep"
-        ty0, pad = pick_band_leg_tile(cfg, K, self.dtype)
-        if cfg.ydim - band < pad:
-            raise ValueError(
-                "temporal blocking needs ydim well above the force "
-                f"band (ydim={cfg.ydim}, band={band}, pad={pad})")
-        self._band_pad = pad
-        self._band_substep = make_sharded_fused_substep(
-            cfg, band + pad, walls, self.dtype, forcing=self.forcing,
-            storage=self.storage, tile_y=ty0,
-            expose_f1_row=band - 1, emit_moments=True)
-        self._bulk_substep = make_temporal_bulk_substep(
-            cfg, cfg.ydim - band, K, walls, self.dtype,
-            forcing=self.forcing, storage=self.storage)
-        self.temporal = K
+    def __hash__(self):
+        return hash(self._key())
 
     def init_state(self) -> FlowState:
         return initial_state(self.cfg, self.dtype)
@@ -305,19 +176,11 @@ class MucociliarySim:
         config (threads/blocks, main.cu:782-783) rather than what was
         asked for.  Written into SimLog and the runner summary so perf
         claims are reproducible from a run's own artifacts."""
-        if self.temporal > 1:
-            leg = self._band_leg
-        else:
-            leg = "single_step" if self.backend == "pallas" else "jnp"
         return {
             "backend": self.backend,
             "backend_reason": self.backend_reason,
-            "band_leg": leg,
             "storage": self.storage,
             "dtype": str(self.dtype),
-            "temporal": self.temporal,
-            "temporal_requested": self.temporal_requested,
-            "temporal_reason": self.temporal_reason,
             "forcing": self.forcing,
             "ib_path": ("stencil_quirk" if self.ib_x_edge == "reference"
                         else "band_matmul"),
@@ -335,7 +198,7 @@ class MucociliarySim:
         cfg = self.cfg
         band = cfg.force_band
         if self._emit:
-            f_new, q_band, fluxcol = self._lb_substep(f, force)
+            f_new, q_band = self._lb_substep(f, force)
         else:
             f_new = self._lb_substep(f, force)
         if self.ib_x_edge == "reference":
@@ -345,8 +208,7 @@ class MucociliarySim:
             force_new = ib.spread(f_s, s, eps, cfg.xdim, band,
                                   x_edge="reference")
         else:
-            # IB coupling in the MXU-friendly band-matmul form
-            # (ops/ib_band.py), mathematically identical to the stencil
+            # IB coupling in the band-matmul form (ops/ib_band.py), mathematically identical to the stencil
             # gather/scatter (ops/ib.py).  The delta factors are evaluated
             # once and shared between interpolate and spread.
             factors = ib_band.delta_factors(anchored, cfg.xdim, band,
@@ -359,11 +221,8 @@ class MucociliarySim:
                                           factors=factors)
             force_new = ib_band.spread(f_s, None, eps, cfg.xdim, band,
                                        factors=factors)
-        if self._emit:
-            q_new = q + ib.flux_from_cols(fluxcol, force_new, cfg.flux_x)
-        else:
-            q_new = q + ib.flux_increment(f_new, force_new, cfg.flux_x,
-                                          storage=self.storage)
+        q_new = q + ib.flux_increment(f_new, force_new, cfg.flux_x,
+                                      storage=self.storage)
         return f_new, force_new, q_new
 
     def step(self, state: FlowState) -> FlowState:
@@ -387,8 +246,8 @@ class MucociliarySim:
 
         The cilia kinematics (many tiny ops) are batched over all steps of
         the chunk OUTSIDE the scan — vmapped positions + backward-difference
-        velocities + placement/epsilon — so the scan body is only the fused
-        LB kernel, the IB band matmuls and the flux sample."""
+        velocities + placement/epsilon — so the scan body is only the LB
+        step, the IB band matmuls and the flux sample."""
         cfg = self.cfg
         its = state.it + jnp.arange(n_steps, dtype=jnp.int32)
         pos = jax.vmap(self.cilia.positions)(its)          # [n, c, nodes, 2]
@@ -412,129 +271,12 @@ class MucociliarySim:
                          lasts=pos[-1].astype(self.aux_dtype), q=q,
                          it=state.it + n_steps)
 
-    def _prep_super_points(self, u_s, eps, anchor, frac, n_super):
-        return prep_band_super_points(
-            self.cfg, self.temporal, self._band_super.halo, self.aux_dtype,
-            u_s, eps, anchor, frac, n_super)
-
-    def _temporal_super_step_fused(self, f_band, f_bulk, force, q, xs):
-        """One-launch band leg: all K band sub-steps + IB coupling inside
-        the resident-band super-kernel; the bulk advances K steps in the
-        temporal kernel as before."""
-        us, ep, axl, fx, ay, fy = xs
-        band_ext = jnp.concatenate(
-            [f_band, f_bulk[:, :self._band_pad_s, :]], axis=1)
-        f_band, bhalos, force, flux_band = self._band_super(
-            band_ext, force, us, ep, axl, fx, ay, fy)
-        f_bulk, flux_bulk = self._bulk_substep(f_bulk, bhalos)
-        q = q + (jnp.sum(flux_band) + jnp.sum(flux_bulk)) / 192.0
-        return f_band, f_bulk, force.astype(self.aux_dtype), q
-
-    def _temporal_super_step(self, f_band, f_bulk, force, q, xs):
-        """K fluid+IB steps: the band region (rows [0, force_band)) runs
-        K single sub-steps through the fused band kernel with full IB
-        coupling; the force-free bulk advances K steps in ONE pass of the
-        temporal kernel.  Seam data: the band's top f1 row per sub-step
-        (bhalo, to the bulk) and the bulk's bottom f1 row per sub-step
-        (thalo, to the band) — the latter from a K-row throwaway "wedge"
-        of the bulk bottom evolved in XLA (a standard temporal-blocking
-        ghost trapezoid: row m of the wedge is valid for the first K-m
-        sub-steps, and only row 0 is ever consumed)."""
-        cfg = self.cfg
-        K = self.temporal
-        band = cfg.force_band
-        aux = self.aux_dtype
-        u_s, eps, anchor, frac, s_all = xs
-        flags = jnp.array([0, 1, 0], jnp.int32)  # y0=0, bottom wall, no top
-        zero8 = jnp.zeros((9, 8, cfg.xdim), aux)
-        # Extended band block: band rows + a throwaway copy of the bulk
-        # bottom (ghost trapezoid; its top halo is garbage that never
-        # reaches the band rows within K sub-steps).
-        band_ext = jnp.concatenate([f_band, f_bulk[:, :self._band_pad, :]],
-                                   axis=1)
-        bhalos = []
-        flux_band = jnp.zeros((), aux)
-        for s in range(K):
-            band_ext, bhalo, q_band, fluxcol = self._band_substep(
-                flags, band_ext, force, zero8, zero8)
-            if self.ib_x_edge == "reference":
-                # quirk-exact stencil IB (ops/ib.py): all stencil cells
-                # lie far below the block's trapezoid rows, so gathering
-                # from the extended band block equals the full-grid gather
-                f_s = ib.interpolate_from_f(
-                    band_ext, s_all[s], u_s[s], storage=self.storage,
-                    x_edge="reference")
-                force = ib.spread(f_s, s_all[s], eps[s], cfg.xdim, band,
-                                  x_edge="reference").astype(force.dtype)
-            else:
-                factors = ib_band.delta_factors((anchor[s], frac[s]),
-                                                cfg.xdim, band, aux)
-                f_s = ib_band.interpolate_from_moments(q_band, u_s[s],
-                                                       factors)
-                force = ib_band.spread(f_s, None, eps[s], cfg.xdim, band,
-                                       factors=factors).astype(force.dtype)
-            # band rows only: the pad/ghost rows' flux comes from the bulk
-            flux_band = flux_band + ib.flux_from_cols(
-                fluxcol[:, :band], force, cfg.flux_x, ydim_divisor=192.0)
-            bhalos.append(bhalo)
-        f_bulk, flux_bulk = self._bulk_substep(f_bulk, jnp.stack(bhalos))
-        # NOTE asymmetric normalization: flux_band is already /192 (inside
-        # flux_from_cols, per sub-step) while the bulk kernel's flux is
-        # raw and divided here — the fused sibling
-        # (_temporal_super_step_fused) divides both raw sums in one place.
-        q = q + flux_band + jnp.sum(flux_bulk) / 192.0
-        return band_ext[:, :band], f_bulk, force, q
-
-    @partial(jax.jit, static_argnums=(0, 2), donate_argnums=(1,))
-    def _run_scan_temporal(self, state: FlowState, n_steps: int) -> FlowState:
-        """n_steps (a multiple of self.temporal) iterations as
-        n_steps/temporal scanned super-steps over split (band, bulk) state."""
-        cfg = self.cfg
-        K = self.temporal
-        assert n_steps % K == 0
-        n_super = n_steps // K
-        its = state.it + jnp.arange(n_steps, dtype=jnp.int32)
-        pos = jax.vmap(self.cilia.positions)(its)
-        vel = jnp.where((its > 0)[:, None, None, None],
-                        jax.vmap(self.cilia.velocities)(its),
-                        jnp.zeros_like(pos))
-        s_all, u_s, eps = jax.vmap(self.cilia.place_and_mask)(pos, vel)
-        anchor, frac = jax.vmap(self.cilia.anchored_nodes)(pos)
-
-        def rs(x):
-            return x.reshape((n_super, K) + x.shape[1:])
-
-        band = cfg.force_band
-        f_band = state.f[:, :band]
-        f_bulk = state.f[:, band:]
-
-        if self._band_super is not None:
-            xs_all = self._prep_super_points(u_s, eps, anchor, frac, n_super)
-
-            def body(carry, xs):
-                return self._temporal_super_step_fused(*carry, xs), None
-        else:
-            xs_all = (rs(u_s), rs(eps), rs(anchor), rs(frac), rs(s_all))
-
-            def body(carry, xs):
-                return self._temporal_super_step(*carry, xs), None
-
-        (f_band, f_bulk, force, q), _ = jax.lax.scan(
-            body, (f_band, f_bulk, state.force, state.q), xs_all)
-        return FlowState(f=jnp.concatenate([f_band, f_bulk], axis=1),
-                         force=force, lasts=pos[-1].astype(self.aux_dtype),
-                         q=q, it=state.it + n_steps)
-
     def run_chunk(self, state: FlowState, n_steps: int) -> FlowState:
-        """n_steps iterations inside compiled scan(s)."""
-        K = self.temporal
+        """n_steps iterations inside compiled scan(s) of at most _MAX_SCAN
+        steps each."""
         while n_steps > 0:
             k = min(n_steps, self._MAX_SCAN)
-            if K > 1 and k >= K:
-                k -= k % K
-                state = self._run_scan_temporal(state, k)
-            else:
-                state = self._run_scan(state, k)
+            state = self._run_scan(state, k)
             n_steps -= k
         return state
 

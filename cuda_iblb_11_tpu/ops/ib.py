@@ -1,6 +1,6 @@
 """Immersed-boundary coupling: regularized delta, interpolation, spreading, flux.
 
-Replicates CUDA_IBLB_11/ImmersedBoundary.cu with TPU-idiomatic dataflow:
+Replicates CUDA_IBLB_11/ImmersedBoundary.cu with vectorized dataflow:
 
   * ``delta_1d`` — the 3-point Roma/Peskin regularized delta exactly as the
     reference evaluates it, including its truncated 0.33333 / 0.16667
@@ -34,13 +34,10 @@ points within 1.5 lattice units of the x edges.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 from cuda_iblb_11_tpu.core.lattice import C
-
-# full-precision f32 contractions on TPU (see ops/ib_band.py:_PREC)
-_PREC = jax.lax.Precision.HIGH
+from cuda_iblb_11_tpu.ops.reference import lattice_momentum, lattice_sum
 
 # Reference coefficient literals (ImmersedBoundary.cu:36,43).
 _A_INNER = 0.33333
@@ -141,9 +138,7 @@ def interpolate_from_f(f, s, u_s, storage="raw", x_edge="periodic"):
     rho_n = jnp.sum(f_n, axis=0)             # [Ns, 9cells]
     if storage == "deviatoric":
         rho_n = 1.0 + rho_n
-    c = jnp.asarray(C, f.dtype)
-    u_n = jnp.einsum("inm,ic->cnm", f_n, c,
-                 precision=_PREC) / rho_n[None]
+    u_n = lattice_momentum(f_n) / rho_n[None]
     diff = u_s.T[:, :, None] - u_n
     return jnp.sum(2.0 * w[None] * rho_n[None] * diff, axis=-1).T
 
@@ -175,32 +170,14 @@ def flux_increment(f_new, force_new, flux_x, ydim_divisor=192.0,
     ([2, BAND, X], zero above the band).
     """
     cdt = jnp.promote_types(f_new.dtype, jnp.float32)
-    cx = jnp.asarray(C[:, 0], cdt)
     col_f = f_new[:, :, flux_x].astype(cdt)  # [9, Y]
     rho = jnp.sum(col_f, axis=0)
     if storage == "deviatoric":
         rho = 1.0 + rho
-    mom_x = jnp.einsum("iy,i->y", col_f, cx, precision=_PREC)
+    mom_x = lattice_sum(col_f, C[:, 0])
     fcol = force_new[0, :, flux_x].astype(cdt)
     ydim = f_new.shape[1]
     if fcol.shape[0] < ydim:
         fcol = jnp.pad(fcol, (0, ydim - fcol.shape[0]))
     ux = (mom_x + 0.5 * fcol) / rho
     return jnp.sum(ux) / ydim_divisor
-
-
-def flux_from_cols(fluxcol, force_new, flux_x, ydim_divisor=192.0):
-    """Flux sample from KERNEL-EMITTED column partials.
-
-    fluxcol [2, Y, 128] lane 0 holds per-row (rho, mom_x) at the flux
-    column (ops/pallas_step.py, emit_moments=True; storage adjustment
-    already applied in-kernel).  Combines with the NEW force's half-force
-    correction exactly like flux_increment (ImmersedBoundary.cu:249-264)
-    without the whole-array lane slice of f."""
-    rho = fluxcol[0, :, 0]
-    mom_x = fluxcol[1, :, 0]
-    fcol = force_new[0, :, flux_x].astype(fluxcol.dtype)
-    ydim = rho.shape[0]
-    if fcol.shape[0] < ydim:
-        fcol = jnp.pad(fcol, (0, ydim - fcol.shape[0]))
-    return jnp.sum((mom_x + 0.5 * fcol) / rho) / ydim_divisor

@@ -1,9 +1,8 @@
-"""MXU-friendly IB coupling: gather/scatter recast as band matmuls.
+"""IB coupling: gather/scatter recast as band matmuls.
 
 The reference brute-forces spreading as an O(size x Ns) all-pairs loop with
 shared-memory tiling (ImmersedBoundary.cu:150-231) and interpolation as one
-thread per point (:94-133).  On TPU, scatters and gathers are slow while
-matrix units are nearly free, and the 2-D regularized delta is SEPARABLE:
+thread per point (:94-133).  Here the 2-D regularized delta is SEPARABLE:
 delta2(x - xs, y - ys) = delta(x - xs) * delta(y - ys).  All Lagrangian
 points also live in a fixed y-band (cilium base y=1, tip <= ~97+1.5 rows),
 so with dense per-axis delta factor matrices
@@ -29,15 +28,14 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from cuda_iblb_11_tpu.core.lattice import C
 from cuda_iblb_11_tpu.ops.ib import delta_1d
+from cuda_iblb_11_tpu.ops.reference import lattice_momentum
 
-# TPU f32 einsums default to reduced-precision MXU passes, which injects
-# ~1e-3 relative noise into the IB force every step and broke the <1e-5
-# velocity bound ON HARDWARE (measured 2026-08-16: default 1.0e-3 vs f64 at
-# 500 steps; HIGH 3.8e-6; HIGHEST 9.8e-7; CPU f32 8.6e-6).  HIGH costs ~9%
-# of the temporal-K8 rate vs default and keeps the accuracy claim honest.
-_PREC = jax.lax.Precision.HIGH
+# Measured on an H100 (a [3, 136, 2048] x [1536, 2048] band contraction vs
+# f64): XLA hands these dots to cuBLAS, where DEFAULT and HIGH both run in
+# TF32 (rel 3.0e-4, which would break the <1e-5 velocity bound) and
+# HIGHEST runs full f32 (rel 5.7e-8) and was the fastest of the three.
+_PREC = jax.lax.Precision.HIGHEST
 
 DEFAULT_BAND = 128  # >= max cilium tip height (~97.5) + delta support
 
@@ -55,38 +53,26 @@ def _delta_factors(s, xdim, band, dtype):
     return delta_1d(dy), delta_1d(dx)
 
 
-def _delta_factors_anchored(anchor, frac, xdim, band, dtype,
-                            x_offset=0, x_count=None,
-                            y_offset=0, y_count=None):
+def _delta_factors_anchored(anchor, frac, xdim, band, dtype):
     """Precision-preserving delta factors from the (integer anchor,
     sub-cell fraction) position split (models/cilia.py:anchored_nodes).
 
     The grid-to-anchor distances are exact int32 arithmetic (with an
     integer periodic fold in x); only the |frac| <= 0.5 part touches the
     storage dtype, so the delta argument keeps full precision instead of
-    the XDIM * 2^-24 rounding of absolute f32 coordinates.
-
-    x_offset/x_count and y_offset/y_count restrict the factor matrices to
-    a (possibly traced-offset) sub-block of the grid — used by the spatial
-    sharding to evaluate only a shard's own columns/rows.  The periodic
-    x fold is always over the GLOBAL xdim."""
-    x_count = xdim if x_count is None else x_count
-    y_count = band if y_count is None else y_count
+    the XDIM * 2^-24 rounding of absolute f32 coordinates."""
     half = jnp.int32(xdim // 2)
     xx = jnp.int32(xdim)
-    xg = (jnp.int32(x_offset)
-          + jnp.arange(x_count, dtype=jnp.int32))[None, :]
+    xg = jnp.arange(xdim, dtype=jnp.int32)[None, :]
     v = xg - anchor[:, 0][:, None].astype(jnp.int32)
     # exact integer periodic fold to [-X/2, X/2); |v| < 2X always (the
     # anchor is within one wrap of the domain), so two conditional
-    # adjustments suffice.  (integer jnp.mod hits a lowering recursion bug
-    # on some TPU stacks.)
+    # adjustments suffice.
     for _ in range(2):
         v = jnp.where(v >= half, v - xx, v)
         v = jnp.where(v < -half, v + xx, v)
     dx = v.astype(dtype) - frac[:, 0][:, None]
-    yg = (jnp.int32(y_offset)
-          + jnp.arange(y_count, dtype=jnp.int32))[None, :]
+    yg = jnp.arange(band, dtype=jnp.int32)[None, :]
     dy = (yg - anchor[:, 1][:, None].astype(jnp.int32)).astype(dtype) \
         - frac[:, 1][:, None]
     return delta_1d(jnp.abs(dy)), delta_1d(jnp.abs(dx))
@@ -107,9 +93,7 @@ def band_moments(f, band, storage="raw"):
     rho = jnp.sum(fb, axis=0)
     if storage == "deviatoric":
         rho = 1.0 + rho
-    c = jnp.asarray(C, f.dtype)
-    mom = jnp.einsum("iyx,ic->cyx", fb, c, precision=_PREC)
-    return rho, mom
+    return rho, lattice_momentum(fb)
 
 
 def interpolate(f, s, u_s, band=DEFAULT_BAND, storage="raw", anchored=None,
@@ -131,10 +115,10 @@ def interpolate(f, s, u_s, band=DEFAULT_BAND, storage="raw", anchored=None,
     else:
         dy, dx = _delta_factors(s, f.shape[2], band, cdt)
     q = jnp.concatenate([rho[None], mom], axis=0)        # [3, band, X]
-    # Contract the LONG (x) axis first on the MXU: the intermediate is
+    # Contract the LONG (x) axis first: the intermediate is
     # [3, band, Ns] (a few MB) instead of the [3, Ns, X] outer-product
     # slab (~37 MB at 2048^2 / 16 cilia) the naive order materializes —
-    # same flops, ~15x less HBM traffic.
+    # same flops, ~15x less memory traffic.
     t = jnp.einsum("qyx,kx->qky", q, dx, precision=_PREC,
                    preferred_element_type=cdt)            # [3, band, Ns]
     i_q = jnp.einsum("ky,qky->qk", dy, t, precision=_PREC,
@@ -148,7 +132,7 @@ def interpolate_from_moments(q, u_s, factors):
     q [3, band, X] = (rho, mom_x, mom_y) of the streamed state over the
     force band, produced by the fused kernel's output pass
     (ops/pallas_step.py, emit_moments=True) — identical values to
-    band_moments(f_new) without re-reading the 9 f planes from HBM.
+    band_moments(f_new) without re-reading the 9 f planes.
     factors = delta_factors(...), shared with spread()."""
     dy, dx = factors
     cdt = q.dtype
@@ -179,50 +163,10 @@ def spread(f_s, s, eps, xdim, band=DEFAULT_BAND, anchored=None,
                       preferred_element_type=f_s.dtype)   # [2, band, X]
 
 
-def interpolate_partial(f_loc, xdim, band, y0, x0, n_rows, storage="raw",
-                        anchored=None):
-    """Per-shard partial band-moment integrals for sharded interpolation.
-
-    f_loc [9, yl, xl] is a shard's local block at global offset (y0, x0).
-    Returns i_q_partial [3, Ns] — this shard's contribution to the
-    (rho, mom_x, mom_y) delta integrals, summed over its first n_rows rows
-    (n_rows = min(yl, band) suffices: the delta y-factors are EXACTLY zero
-    above the force band, so shards above it contribute exact zeros).
-    psum the result over the mesh, then finish with finish_interpolate.
-    """
-    if anchored is None:
-        raise ValueError("sharded interpolation requires anchored positions")
-    rho, mom = band_moments(f_loc, n_rows, storage)
-    cdt = rho.dtype
-    dy, dx = _delta_factors_anchored(
-        anchored[0], anchored[1], xdim, band, cdt,
-        x_offset=x0, x_count=f_loc.shape[2], y_offset=y0, y_count=n_rows)
-    q = jnp.concatenate([rho[None], mom], axis=0)          # [3, n_rows, xl]
-    # x-axis first: [3, n_rows, Ns] intermediate, not [3, Ns, xl] (see
-    # interpolate()).
-    t = jnp.einsum("qyx,kx->qky", q, dx, precision=_PREC,
-                   preferred_element_type=cdt)              # [3, n_rows, Ns]
-    return jnp.einsum("ky,qky->qk", dy, t, precision=_PREC,
-                      preferred_element_type=cdt)           # [3, Ns]
-
-
 def finish_interpolate(i_q, u_s):
     """F_s [Ns, 2] from the psummed delta integrals."""
     cdt = i_q.dtype
     return (2.0 * (u_s.astype(cdt).T * i_q[0][None] - i_q[1:])).T
-
-
-def spread_local(f_s, eps, xdim, band, x0, xl, anchored=None):
-    """Shard-local columns of the band force field: [2, band, xl] at global
-    column offset x0.  No reduction needed — every Eulerian cell's force is
-    a sum over ALL Lagrangian points, and each shard evaluates the full
-    point set against its own delta x-factors."""
-    if anchored is None:
-        raise ValueError("sharded spreading requires anchored positions")
-    dy, dx = _delta_factors_anchored(
-        anchored[0], anchored[1], xdim, band, f_s.dtype,
-        x_offset=x0, x_count=xl)
-    return spread(f_s, None, eps, xdim, band, factors=(dy, dx))
 
 
 def pad_band(force_band, ydim):

@@ -1,33 +1,24 @@
-"""Fused single-pass D2Q9 TRT collide+stream Pallas kernel for TPU.
+"""Fused D2Q9 TRT collide+stream as one Pallas kernel through Triton.
 
-Replaces the reference's four separate grid kernels per step
-(equilibrium -> collision -> streaming -> macro, main.cu:852-880) with ONE
-pass over HBM: per row-tile, the distributions f and the IB force field are
-DMA'd into VMEM (with one-row halos), the macroscopic moments / equilibrium
-/ Guo forcing / TRT collision are evaluated in VMEM, and the pull-form
-streaming (periodic x via lane rolls, channel walls via edge-row fixups)
-writes the new distributions straight to the output block.  HBM traffic is
-near the floor for this update: read 9f + 2force (+8-row aligned halo
-bands), write 9f — macro moments are never materialized (the IB coupling
-gathers them at its Ns*9 stencil cells only, ops/ib.py:interpolate_from_f).
+One read and one write of ``f`` per step: each program owns a
+``BY x BX`` block of output cells and, for every population ``d``, pulls
+the post-collision value ``f1_d`` from its source cell ``(y - cy, x - cx)``
+(pull-form streaming, ops/reference.py:stream).  Programs run in no order
+and share nothing, so a program cannot take its neighbours' post-collision
+values: it re-collides the source cell of each population itself, from the
+pre-collision ``f`` and force (nine loads that hit L1/L2 after the first).
+The periodic x wrap is an index modulo; the walls replace the incoming
+populations of the first and last row with the cell's own permuted ``f1``
+(LatticeBoltzmann.cu:328-353).  The input is read by other programs'
+halos, so the output is a separate buffer.
 
-Mosaic constraints shaping the code:
-  * DMA offsets and shapes on the sublane axis must be 8-aligned => halo
-    rows are fetched as aligned 8-row bands (row 7 of the band above /
-    row 0 of the band below); `pl.multiple_of` hints mark the offsets.
-  * No value-level dynamic_slice => all working slices are static; the
-    per-tile working planes are built by concatenating [halo, tile, halo].
-  * ~16 MB VMEM => the TRT update is evaluated pair-by-pair (moments
-    accumulated first), keeping ~a dozen (TY+2, X) planes live instead of
-    the naive 40+.
+With ``emit_moments`` the kernel also writes the streamed state's
+``(rho, mom_x, mom_y)`` over the IB force band, the moments the IB
+interpolation needs (ops/ib_band.interpolate_from_moments), so the step
+does not read ``f_new`` back for them.
 
-Walls exactly as the reference (LatticeBoltzmann.cu:328-353): bottom halfway
-bounce-back, top specular slip (or no-slip for the cavity/Poiseuille
-models), periodic x.  Wall fixups happen inside the owning pair's scope.
-
-Equivalence with the pure-jnp oracle (ops/reference.py) is asserted in
-tests/test_pallas.py in interpreter mode and on real TPU by the benchmark
-harness.
+Interpret mode (``interpret=True``) runs the same kernel on the CPU for the
+tests; it is never chosen implicitly.
 """
 
 from __future__ import annotations
@@ -37,10 +28,12 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from cuda_iblb_11_tpu.core.lattice import C, CS_KERNEL, W
-from cuda_iblb_11_tpu.ops.reference import REFERENCE_WALLS, WallSpec
+from cuda_iblb_11_tpu.ops.reference import (
+    REFERENCE_WALLS, WallSpec, lattice_sum,
+)
 
 CS2 = CS_KERNEL * CS_KERNEL
 CS4 = CS2 * CS2
@@ -48,2311 +41,195 @@ CS4 = CS2 * CS2
 CX = [int(c) for c in C[:, 0]]
 CY = [int(c) for c in C[:, 1]]
 WI = [float(w) for w in W]
+PAIRS = ((1, 3), (2, 4), (5, 7), (6, 8))
+PAIR_OF = {d: k for k, pair in enumerate(PAIRS) for d in pair}
+
+# Output cells per program (rows, columns), powers of two for Triton, and
+# warps per program: the fastest of 20 (block, warps) pairs timed on an H100
+# at both 288x192 and 2048^2 (PERF.md).
+BLOCK = (8, 64)
+NUM_WARPS = 8
 
 
-def _pick_tile(ydim: int, xdim: int, itemsize: int = 4,
-               pipeline: bool = True, budget: int | None = None) -> int:
-    """Largest row-tile whose VMEM footprint fits.
-
-    Pipelined kernel: 2 input slots of (9+2) planes + 3-slot f1 ring +
-    double-buffered 9-plane output + ~12 working planes, against the raised
-    vmem limit.  Halo-band kernel: one (9+2)(ty+16) input set + output +
-    ~14 working planes against the default 16 MB."""
-    if budget is None:
-        budget = (64 << 20) if pipeline else (14 << 20)
-    for ty in (64, 32, 16, 8):
-        if ydim % ty:
-            continue
-        if pipeline:
-            planes = (2 * 11 + 3 * 9 + 2 * 9 + 12) * ty
-        else:
-            planes = 11 * (ty + 16) + 2 * 9 * ty + 14 * (ty + 2)
-        if planes * xdim * itemsize <= budget:
-            return ty
-    return 8
+def _cdot(d, x, y):
+    """c_d . (x, y) as a sum: the lattice coefficients are 0 or +-1."""
+    terms = [v if cd > 0 else -v for cd, v in ((CX[d], x), (CY[d], y)) if cd]
+    return terms[0] if len(terms) == 1 else terms[0] + terms[1]
 
 
-def _collide_stream_kernel(
-    f_hbm, force_hbm, out_ref, fsc, fup, fdn, foc, fo_up, fo_dn, sem,
-    *, ydim, xdim, ty, band, tau, tau2, forcing, walls, storage,
-):
-    i = pl.program_id(0)
-    n_tiles = pl.num_programs(0)
-    base = pl.multiple_of(i * ty, 8)
-    # Aligned 8-row halo bands; at the global edges the clamped band content
-    # only feeds wall rows, which the fixups overwrite.
-    up = pl.multiple_of(jnp.maximum(base - 8, 0), 8)
-    dn = pl.multiple_of(jnp.minimum(base + ty, ydim - 8), 8)
-
-    copies = [
-        pltpu.make_async_copy(f_hbm.at[:, pl.ds(base, ty), :], fsc, sem.at[0]),
-        pltpu.make_async_copy(f_hbm.at[:, pl.ds(up, 8), :], fup, sem.at[1]),
-        pltpu.make_async_copy(f_hbm.at[:, pl.ds(dn, 8), :], fdn, sem.at[2]),
-    ]
-    # The IB force field is band-sized (identically zero above `band` rows):
-    # copy only in-band slices, zero-fill above.
-    base_f = pl.multiple_of(jnp.minimum(base, band - ty), 8)
-    up_f = pl.multiple_of(jnp.minimum(up, band - 8), 8)
-    dn_f = pl.multiple_of(jnp.minimum(dn, band - 8), 8)
-    force_copies = [
-        (base < band,
-         pltpu.make_async_copy(force_hbm.at[:, pl.ds(base_f, ty), :], foc,
-                               sem.at[3]), foc),
-        (up < band,
-         pltpu.make_async_copy(force_hbm.at[:, pl.ds(up_f, 8), :], fo_up,
-                               sem.at[4]), fo_up),
-        (dn < band,
-         pltpu.make_async_copy(force_hbm.at[:, pl.ds(dn_f, 8), :], fo_dn,
-                               sem.at[5]), fo_dn),
-    ]
-    for cp in copies:
-        cp.start()
-    for cond, cp, buf in force_copies:
-        @pl.when(cond)
-        def _(cp=cp):
-            cp.start()
-
-        @pl.when(jnp.logical_not(cond))
-        def _(buf=buf):
-            buf[...] = jnp.zeros_like(buf[...])
-    for cp in copies:
-        cp.wait()
-    for cond, cp, _buf in force_copies:
-        @pl.when(cond)
-        def _(cp=cp):
-            cp.wait()
-
-    def fplane(d):
-        """(ty+2, X) working plane of population d: [halo, tile, halo]."""
-        return jnp.concatenate(
-            [fup[d, 7:8, :], fsc[d], fdn[d, 0:1, :]], axis=0)
-
-    def foplane(c):
-        return jnp.concatenate(
-            [fo_up[c, 7:8, :], foc[c], fo_dn[c, 0:1, :]], axis=0)
-
-    def stream_write(d, f1_d):
-        """Pull-form streaming: out row r (working row r+1) takes f1 working
-        row r+1-cy, rolled by cx in x (periodic "thru" stream)."""
-        cx, cy = CX[d], CY[d]
-        rows = f1_d[1 - cy:1 - cy + ty, :]
-        if cx != 0:
-            rows = jnp.roll(rows, cx, axis=-1)
-        out_ref[d] = rows
-
-    # --- TRT + Guo collide of the (ty+2, X) working planes (the shared
-    # expression tree, see _collide_tile), then pull-form streaming.  The
-    # two halo rows are collided redundantly (they become the pulled rows).
-    f = [fplane(d) for d in range(9)]
-    gx = foplane(0)
-    gy = foplane(1)
-    f1, _, _ = _collide_tile(f, gx, gy, tau=tau, tau2=tau2,
-                             forcing=forcing, storage=storage)
-    wall_rows = [None] * 9
-    for d in range(9):
-        stream_write(d, f1[d])
-        # Stash the single wall-source rows for the end-of-kernel fixups
-        # (a fixup may target a direction whose main write happens later,
-        # so fixups must run after ALL main writes).
-        wall_rows[d] = (f1[d][1:2, :], f1[d][ty:ty + 1, :])
-
-    # Wall fixups (working row 1 = global bottom row y=0; working row ty =
-    # global top row y=YDIM-1), after ALL main writes.
-    if walls.bottom == "noslip":
-        @pl.when(i == 0)
-        def _bottom():
-            out_ref[2, 0:1, :] = wall_rows[4][0]   # halfway bounce-back
-            out_ref[5, 0:1, :] = wall_rows[7][0]
-            out_ref[6, 0:1, :] = wall_rows[8][0]
-    if walls.top == "slip":  # specular reflection: 4<-2, 8<-5, 7<-6
-        @pl.when(i == n_tiles - 1)
-        def _top_slip():
-            out_ref[4, ty - 1:ty, :] = wall_rows[2][1]
-            out_ref[8, ty - 1:ty, :] = wall_rows[5][1]
-            out_ref[7, ty - 1:ty, :] = wall_rows[6][1]
-    elif walls.top == "noslip":  # bounce-back: 4<-2, 7<-5, 8<-6
-        @pl.when(i == n_tiles - 1)
-        def _top_noslip():
-            out_ref[4, ty - 1:ty, :] = wall_rows[2][1]
-            out_ref[7, ty - 1:ty, :] = wall_rows[5][1]
-            out_ref[8, ty - 1:ty, :] = wall_rows[6][1]
-
-
-def _pipelined_kernel(
-    *refs,
-    ydim, xdim, ty, band_tiles, tau, tau2, forcing, walls, storage,
-    cdt=jnp.float32, align=8, sharded=False, band=None, expose_row=None,
-    emit_moments=False, flux_lane=None,
-):
-    """Lag-1 software-pipelined variant with an f1 ring.
-
-    Collision is purely cell-local, so at grid step i (grid = n_tiles + 1
-    steps) the kernel:
-      1. prefetches tile i+1 (f; force only inside the IB band, zero-fill
-         above) — overlapping this step's compute;
-      2. computes the post-collision distributions f1 of tile i on its
-         ALIGNED (ty, X) block (pair/even-odd form of the TRT + Guo update,
-         see below) and stores them into a 3-slot VMEM ring;
-      3. assembles the STREAMED output of tile j = i-1 purely by data
-         movement from the ring: pull rows from f1(j-1)'s last row /
-         f1(j) / f1(j+1)'s first row, lane-rolled by cx for the periodic
-         x "thru" stream, with the wall fixups on the outer tiles.
-
-    Every HBM byte is therefore read exactly once (~72.5 B/cell in f32 with
-    the band-limited force), no halo rows are recomputed, and all vector
-    arithmetic runs on 8-sublane-aligned tiles.
-
-    Pair-form TRT update (bit-equivalent to the per-direction form in exact
-    arithmetic):
-        f0+ = rho w (1 + cu^2/(2 cs^4) - u^2/(2 cs^2)),  f0- = rho w cu/cs^2
-        s+  = w (cu (c.g)/cs^4 - (u.g)/cs^2),            s-  = w (c.g)/cs^2
-    """
-    f1out = None
-    q_out = flux_out = None
-    rs = list(refs)
-    if sharded:
-        # (flags via scalar prefetch: [y0_rows, is_bottom, is_top];
-        #  bhalo/thalo: f1 halo rows from the neighbour shards, row 0 used)
-        flags, f_hbm, force_hbm, bhalo, thalo, out_ref = rs[:6]
-        rs = rs[6:]
-        if expose_row is not None:
-            f1out = rs.pop(0)
-        y0 = pl.multiple_of(flags[0], align)
-        is_bottom = flags[1] == 1
-        is_top = flags[2] == 1
-    else:
-        f_hbm, force_hbm, out_ref = rs[:3]
-        rs = rs[3:]
-        y0 = 0
-        is_bottom = True
-        is_top = True
-    if emit_moments:
-        q_out = rs.pop(0)
-        flux_out = rs.pop(0)
-    fsl, fosl, f1sl, sem = rs
-    i = pl.program_id(0)
-    n_tiles = pl.num_programs(0) - 1
-
-    def force_pred(tile):
-        if sharded:
-            # force array holds GLOBAL band rows [0, band); this shard's
-            # tile covers global rows starting at y0 + tile*ty
-            return y0 + tile * ty < band
-        return tile < band_tiles
-
-    def force_base(tile):
-        g = y0 + tile * ty if sharded else tile * ty
-        return pl.multiple_of(g, align)
-
-    def start_dma(tile):
-        base = pl.multiple_of(tile * ty, align)
-        slot = tile % 2
-        pltpu.make_async_copy(
-            f_hbm.at[:, pl.ds(base, ty), :], fsl.at[slot], sem.at[slot, 0]
-        ).start()
-        # Force is band-sized (zero above the band): DMA inside the band,
-        # zero-fill above so reads see true zeros with no masking.
-        @pl.when(force_pred(tile))
-        def _():
-            pltpu.make_async_copy(
-                force_hbm.at[:, pl.ds(force_base(tile), ty), :], fosl.at[slot],
-                sem.at[slot, 1],
-            ).start()
-
-        @pl.when(jnp.logical_not(force_pred(tile)))
-        def _():
-            fosl[slot] = jnp.zeros_like(fosl[slot])
-
-    def wait_dma(tile):
-        slot = tile % 2
-        base = pl.multiple_of(tile * ty, align)
-        pltpu.make_async_copy(
-            f_hbm.at[:, pl.ds(base, ty), :], fsl.at[slot], sem.at[slot, 0]
-        ).wait()
-
-        @pl.when(force_pred(tile))
-        def _():
-            pltpu.make_async_copy(
-                force_hbm.at[:, pl.ds(force_base(tile), ty), :], fosl.at[slot],
-                sem.at[slot, 1],
-            ).wait()
-
-    @pl.when(i == 0)
-    def _kickoff():
-        start_dma(0)
-        if f1out is not None:
-            f1out[...] = jnp.zeros_like(f1out)
-
-    @pl.when(i + 1 <= n_tiles - 1)
-    def _prefetch():
-        start_dma(i + 1)
-
-    # --- collide tile i into the f1 ring ---------------------------------
-    @pl.when(i <= n_tiles - 1)
-    def _collide():
-        wait_dma(i)
-        sc = i % 2
-        rc = i % 3
-        # Loads are cast to the compute dtype (f32 math over bf16 storage
-        # in the fast mode; identity for f32/f64 storage).  deviatoric
-        # storage: f holds f_i - w_i, so rho = 1 + sum (sum w = 1) and the
-        # momentum sums are unchanged (sum w c = 0) but free of the f32
-        # cancellation of the large constant part.  The collide expression
-        # tree is shared with every other kernel (see _collide_tile).
-        f = [fsl[sc, d].astype(cdt) for d in range(9)]
-        gx = fosl[sc, 0].astype(cdt)
-        gy = fosl[sc, 1].astype(cdt)
-        f1, _, _ = _collide_tile(f, gx, gy, tau=tau, tau2=tau2,
-                                 forcing=forcing, storage=storage)
-        for d in range(9):
-            f1sl[rc, d] = f1[d]
-
-        # Optionally expose one local row's f1 (temporal blocking reads the
-        # band's top-row post-collision values as the bulk's seam halo).
-        if f1out is not None:
-            er_tile, er_row = expose_row // ty, expose_row % ty
-
-            @pl.when(i == er_tile)
-            def _expose():
-                for d in range(9):
-                    f1out[d, 0:1, :] = f1sl[
-                        rc, d, er_row:er_row + 1, :].astype(f1out.dtype)
-
-    # --- assemble streamed output of tile j = i-1 from the ring ----------
-    @pl.when(i >= 1)
-    def _stream():
-        j = i - 1
-        rp = (j + 2) % 3  # slot of tile j-1
-        rc = j % 3
-        rn = (j + 1) % 3
-
-        if emit_moments:
-            planes = [None] * 9
-        for d in range(9):
-            cx, cy = CX[d], CY[d]
-            if cy == 0:
-                rows = f1sl[rc, d]
-            elif cy == 1:  # pull from below: [f1(j-1) last row, f1(j)[:-1]]
-                prev_row = f1sl[rp, d, ty - 1:ty, :]
-                if sharded:
-                    # the shard's first tile pulls from the neighbour
-                    # shard's last f1 row (exchanged over ICI)
-                    prev_row = jnp.where(
-                        j == 0, bhalo[d, 0:1, :].astype(cdt), prev_row)
-                rows = jnp.concatenate(
-                    [prev_row, f1sl[rc, d, 0:ty - 1, :]], axis=0)
-            else:          # pull from above: [f1(j)[1:], f1(j+1) first row]
-                next_row = f1sl[rn, d, 0:1, :]
-                if sharded:
-                    next_row = jnp.where(
-                        j == n_tiles - 1, thalo[d, 0:1, :].astype(cdt),
-                        next_row)
-                rows = jnp.concatenate(
-                    [f1sl[rc, d, 1:ty, :], next_row], axis=0)
-            if cx != 0:
-                rows = jnp.roll(rows, cx, axis=-1)  # periodic "thru" stream
-            if emit_moments:
-                planes[d] = rows
-            else:
-                out_ref[d] = rows.astype(out_ref.dtype)
-
-        # Wall fixups (LatticeBoltzmann.cu:328-353): same-cell permuted
-        # populations of tile j's own f1 rows.
-        if walls.top == "slip":       # specular: 4<-2, 8<-5, 7<-6
-            top_pairs = ((4, 2), (8, 5), (7, 6))
-        elif walls.top == "noslip":   # bounce-back: 4<-2, 7<-5, 8<-6
-            top_pairs = ((4, 2), (7, 5), (8, 6))
-        else:
-            top_pairs = ()
-        bot_pairs = (((2, 4), (5, 7), (6, 8))
-                     if walls.bottom == "noslip" else ())
-        odt = out_ref.dtype
-
-        if not emit_moments:
-            if bot_pairs:
-                @pl.when(jnp.logical_and(j == 0, is_bottom)
-                         if sharded else (j == 0))
-                def _bottom():
-                    for dst, src in bot_pairs:
-                        out_ref[dst, 0:1, :] = f1sl[
-                            rc, src, 0:1, :].astype(odt)
-            if top_pairs:
-                @pl.when(jnp.logical_and(j == n_tiles - 1, is_top)
-                         if sharded else (j == n_tiles - 1))
-                def _top():
-                    for dst, src in top_pairs:
-                        out_ref[dst, ty - 1:ty, :] = f1sl[
-                            rc, src, ty - 1:ty, :].astype(odt)
-            return
-
-        # emit_moments: apply the fixups to the IN-REGISTER planes (same
-        # values, pure data movement) so the emitted moments and flux
-        # partials see the final post-stream state, then write everything
-        # once.
-        at_bot = jnp.logical_and(j == 0, is_bottom) if sharded else (j == 0)
-        at_top = (jnp.logical_and(j == n_tiles - 1, is_top)
-                  if sharded else (j == n_tiles - 1))
-        for dst, src in bot_pairs:
-            fixed = f1sl[rc, src, 0:1, :]
-            planes[dst] = jnp.concatenate(
-                [jnp.where(at_bot, fixed, planes[dst][0:1, :]),
-                 planes[dst][1:ty, :]], axis=0)
-        for dst, src in top_pairs:
-            fixed = f1sl[rc, src, ty - 1:ty, :]
-            planes[dst] = jnp.concatenate(
-                [planes[dst][0:ty - 1, :],
-                 jnp.where(at_top, fixed, planes[dst][ty - 1:ty, :])],
-                axis=0)
-        for d in range(9):
-            out_ref[d] = planes[d].astype(odt)
-
-        # Moments of the streamed state: rho/mom for the IB band tiles
-        # (what ib_band.band_moments would re-read f to compute) ...
-        fsum = planes[0]
-        for d in range(1, 9):
-            fsum = fsum + planes[d]
-        rho = 1.0 + fsum if storage == "deviatoric" else fsum
-        mom_x = (planes[1] - planes[3] + planes[5] - planes[6]
-                 - planes[7] + planes[8])
-        in_band = (y0 + j * ty < band) if sharded else (j < band_tiles)
-
-        @pl.when(in_band)
-        def _emit_q():
-            mom_y = (planes[2] - planes[4] + planes[5] + planes[6]
-                     - planes[7] - planes[8])
-            q_out[0] = rho
-            q_out[1] = mom_x
-            q_out[2] = mom_y
-
-        # ... and the flux-column partials (rho, mom_x at x = flux_lane,
-        # ImmersedBoundary.cu:259-264) for every tile, replacing the
-        # whole-array lane slice outside the kernel.  flux_lane is static:
-        # reduce one 128-lane block (bit-identical — adding zeros is
-        # exact in any order).
-        bw = min(128, xdim)
-        bs = min((flux_lane // bw) * bw, xdim - bw)
-        colmask = (jax.lax.broadcasted_iota(jnp.int32, (1, bw), 1)
-                   == (flux_lane - bs)).astype(cdt)
-        lane0 = (jax.lax.broadcasted_iota(jnp.int32, (ty, 128), 1)
-                 == 0).astype(cdt)
-        flux_out[0] = jnp.sum(rho[:, bs:bs + bw] * colmask,
-                              axis=1, keepdims=True) * lane0
-        flux_out[1] = jnp.sum(mom_x[:, bs:bs + bw] * colmask,
-                              axis=1, keepdims=True) * lane0
-
-
-def make_fused_substep(cfg, walls: WallSpec = REFERENCE_WALLS, dtype=jnp.float32,
-                       forcing: str = "trt_split", interpret: bool | None = None,
-                       tile_y: int | None = None, pipeline: bool = True,
-                       storage: str = "raw", emit_moments: bool = False):
-    """Build the jittable fused (f, force) -> f_new update for a fixed config.
-
-    pipeline=True selects the lag-1 software-pipelined kernel (minimal HBM
-    traffic, DMA/compute overlap); pipeline=False the simpler halo-band
-    kernel.  Requirements: x periodic (the reference's channel), bottom
-    no-slip, top slip or no-slip, ydim a multiple of 8.  Other wall
-    combinations use the jnp path.
-
-    emit_moments=True (pipelined only): the call returns
-    (f_new, q [3, band, X], fluxcol [2, ydim, 128]) where q holds the
-    streamed state's (rho, mom_x, mom_y) over the IB force band (exactly
-    what ib_band.band_moments would re-read f_new from HBM to compute;
-    storage adjustment already applied) and fluxcol lane 0 holds the
-    per-row (rho, mom_x) at the flux column x = cfg.flux_x (the inputs of
-    ib.flux_increment's column sample, ImmersedBoundary.cu:259-264) — both
-    produced from in-register post-stream planes at zero extra HBM reads.
-    """
-    if walls.left != "periodic":
-        raise NotImplementedError("pallas backend requires periodic x walls")
-    if walls.bottom not in ("noslip",) or walls.top not in ("slip", "noslip"):
-        raise NotImplementedError(
-            "pallas backend supports bottom=noslip, top=slip|noslip")
-    ydim, xdim = cfg.ydim, cfg.xdim
-    if ydim % 8:
-        raise ValueError("pallas backend requires ydim % 8 == 0")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    _on_tpu = not interpret
-    if _on_tpu and xdim % 128:
-        # Mosaic lane rolls need a 128-multiple X; pick e.g. c_num*c_space
-        # in {384, 512, ...} or use the jnp backend.
-        raise ValueError(
-            f"pallas backend requires xdim % 128 == 0 on TPU (got {xdim})")
-    dtype = jnp.dtype(dtype)
-    # bf16 storage computes in f32 (deviatoric storage required: raw bf16
-    # cannot represent the distributions usefully); force stays f32.
-    cdt = jnp.dtype(jnp.float32) if dtype.itemsize < 4 else dtype
-    fdt = cdt  # force array dtype
-    align = 16 if dtype.itemsize == 2 else 8
-    if dtype.itemsize == 2 and storage != "deviatoric":
-        raise ValueError("bf16 storage requires deviatoric mode")
-    ty = tile_y or _pick_tile(ydim, xdim, dtype.itemsize, pipeline)
-    if dtype.itemsize == 2 and ty % 16:
-        if tile_y:
-            # an explicit override must not be silently rewritten
-            raise ValueError(
-                f"tile_y={tile_y} is not a 16-row multiple (bf16 packed "
-                f"(16, 128) tiling)")
-        ty = max(16, ty - ty % 16)
-    if ydim % ty:
-        raise ValueError(f"ydim {ydim} not divisible by tile {ty}")
-    n_tiles = ydim // ty
-    band = cfg.force_band
-    if band % ty:
-        raise ValueError(f"force band {band} not divisible by tile {ty}")
-
-    common = dict(
-        ydim=ydim, xdim=xdim, ty=ty,
-        tau=float(cfg.tau), tau2=float(cfg.tau2), forcing=forcing,
-        walls=walls, storage=storage,
-    )
-    in_specs = [
-        pl.BlockSpec(memory_space=pl.ANY),
-        pl.BlockSpec(memory_space=pl.ANY),
-    ]
-    out_shape = jax.ShapeDtypeStruct((9, ydim, xdim), dtype)
-
-    if pipeline:
-        band_tiles = band // ty
-        kernel = functools.partial(
-            _pipelined_kernel, band_tiles=band_tiles, cdt=cdt, align=align,
-            band=band, emit_moments=emit_moments,
-            flux_lane=int(cfg.flux_x) if emit_moments else None,
-            **common)
-        bytes_total = (11 + 9) * ydim * xdim * dtype.itemsize
-        out_specs = pl.BlockSpec(
-            (9, ty, xdim), lambda i: (0, jnp.maximum(i - 1, 0), 0),
-            memory_space=pltpu.VMEM)
-        if emit_moments:
-            out_specs = [
-                out_specs,
-                pl.BlockSpec(
-                    (3, ty, xdim),
-                    lambda i: (0, jnp.clip(i - 1, 0, band_tiles - 1), 0),
-                    memory_space=pltpu.VMEM),
-                pl.BlockSpec(
-                    (2, ty, 128), lambda i: (0, jnp.maximum(i - 1, 0), 0),
-                    memory_space=pltpu.VMEM),
-            ]
-            out_shape = [
-                out_shape,
-                jax.ShapeDtypeStruct((3, band, xdim), cdt),
-                jax.ShapeDtypeStruct((2, ydim, 128), cdt),
-            ]
-        call = pl.pallas_call(
-            kernel,
-            grid=(n_tiles + 1,),
-            in_specs=in_specs,
-            out_specs=out_specs,
-            out_shape=out_shape,
-            # In-place f: the output f buffer IS the input f buffer.  Safe
-            # by the pipeline's own lag: the last READ of f region j (the
-            # prefetch issued at grid step j-1, waited at step j) completes
-            # a full grid step before the output flush of region j (issued
-            # at the end of step j+1), and all concurrently-in-flight
-            # read/write DMAs target disjoint regions.  Motivation
-            # (validation/bandwidth.json): same-buffer read+write streams
-            # run ~646 GB/s on this chip vs ~327 for read-A-write-B — the
-            # two-buffer form left the kernel DMA-bound at ~281 GB/s.
-            input_output_aliases={0: 0},
-            scratch_shapes=[
-                pltpu.VMEM((2, 9, ty, xdim), dtype),  # f slots
-                pltpu.VMEM((2, 2, ty, xdim), fdt),    # force slots
-                pltpu.VMEM((3, 9, ty, xdim), cdt),    # f1 ring
-                pltpu.SemaphoreType.DMA((2, 2)),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=96 << 20),
-            cost_estimate=pl.CostEstimate(
-                flops=int(ydim * xdim * 200),
-                bytes_accessed=int(bytes_total),
-                transcendentals=0,
-            ),
-            interpret=interpret,
-        )
-    else:
-        if emit_moments:
-            raise NotImplementedError(
-                "emit_moments only in the pipelined kernel")
-        if dtype.itemsize == 2:
-            raise NotImplementedError(
-                "bf16 storage only in the pipelined kernel")
-        kernel = functools.partial(_collide_stream_kernel, band=band,
-                                   **common)
-        bytes_per_tile = (11 * (ty + 16) + 9 * ty) * xdim * dtype.itemsize
-        call = pl.pallas_call(
-            kernel,
-            grid=(n_tiles,),
-            in_specs=in_specs,
-            out_specs=pl.BlockSpec(
-                (9, ty, xdim), lambda i: (0, i, 0), memory_space=pltpu.VMEM),
-            out_shape=out_shape,
-            scratch_shapes=[
-                pltpu.VMEM((9, ty, xdim), dtype),   # f tile rows
-                pltpu.VMEM((9, 8, xdim), dtype),    # f halo band above
-                pltpu.VMEM((9, 8, xdim), dtype),    # f halo band below
-                pltpu.VMEM((2, ty, xdim), dtype),   # force tile rows
-                pltpu.VMEM((2, 8, xdim), dtype),    # force halo band above
-                pltpu.VMEM((2, 8, xdim), dtype),    # force halo band below
-                pltpu.SemaphoreType.DMA((6,)),
-            ],
-            cost_estimate=pl.CostEstimate(
-                flops=int(ydim * xdim * 250),
-                bytes_accessed=int(n_tiles * bytes_per_tile),
-                transcendentals=0,
-            ),
-            interpret=interpret,
-        )
-
-    def substep(f, force):
-        out = call(f.astype(dtype), force.astype(fdt))
-        return tuple(out) if emit_moments else out
-
-    return substep
-
-
-def pick_band_leg_tile(cfg, n_steps: int, dtype, xdim: int | None = None):
-    """(tile rows, ghost pad rows) for the per-sub-step band leg of the
-    temporal mode.  The band leg runs on an EXTENDED block — the force
-    band plus a `pad`-row throwaway copy of the bulk bottom (the classic
-    temporal-blocking ghost trapezoid, pad >= K) — so the tile choice
-    minimizes the extended block's TOTAL rows (pad rounds up to a whole
-    tile); among row-minimal tiles prefer the largest (fewer grid steps).
-    """
-    dtype = jnp.dtype(dtype)
-    band = cfg.force_band
-    xd = int(xdim) if xdim is not None else cfg.xdim
-    K = int(n_steps)
-    ty_max = min(_pick_tile(band, xd, dtype.itemsize, True), band)
-    align = 16 if dtype.itemsize == 2 else 8
-    cands = [t for t in (64, 32, 16, 8)
-             if t <= ty_max and band % t == 0 and t % align == 0]
-    if not cands:
-        # only reachable with bf16 (align=16) and a band that is 8 mod 16
-        # — a clean rejection, not a fallback that violates the
-        # divisibility/alignment constraints the filter encodes
-        raise ValueError(
-            f"no band-leg tile fits: force band {band} has no "
-            f"{align}-row-aligned divisor tile <= {ty_max} "
-            f"(dtype {dtype})")
-    ty0 = min(cands, key=lambda t: (band + -(-K // t) * t, -t))
-    return ty0, -(-K // ty0) * ty0
-
-
-def _collide_tile(f, gx, gy, *, tau, tau2, forcing, storage):
-    """Pair-form TRT + Guo collide of nine (r, X) planes.  gx=gy=None means
-    zero body force (all source terms drop).  Returns (f1 list, rho, mom_x)
-    — the latter two reused for the flux-column diagnostic.
-
-    This is THE collide expression tree: every Pallas kernel in this module
-    (single-step pipelined + halo-band, temporal bulk, ghost temporal, band
-    super, seam slab) routes its collision through this function, so the
-    temporal-blocking seam halos stay bit-identical across producers and
-    consumers (an XLA-side seam collide that merely rounds differently gets
-    amplified to ~5e-4 by the stiff IB feedback — see
-    make_collide_rows_kernel).
-
-    Shared-monomial form (r3): the pair equilibria are evaluated from the
-    four cu monomials {ux, uy, ux+uy, uy-ux} and two per-weight-class
-    rho/drho products instead of per-pair w*rho / w*drho / cu re-derivation
-    — exactly equal in exact arithmetic to the reference's per-direction
-    update (LatticeBoltzmann.cu:47-56,86-134; asserted to f64 round-off in
-    tests), ~20% fewer VPU ops, measured +5% on the K=16 temporal mode
-    (the kernel is ~30% collide arithmetic by an identity-collide probe).
-    All constants reproduce the reference's truncated C_S literal
-    (CS_KERNEL = 0.57735): 0.5/CS2 != 1.5 exactly, so the factors are
-    spelled via CS2/CS4 rather than decimal literals."""
+def _collide(f, gx, gy, dirs, *, tau, tau2, forcing, storage):
+    """Post-collision populations ``{d: f1_d}`` for ``d in dirs`` of one
+    block of cells: TRT with the Guo source in pair form, as
+    ops/reference.py:collide evaluates it.  ``f`` is the list of the nine pre-collision planes, gx/gy
+    the previous step's IB force.  Equal to the reference in exact
+    arithmetic; the constants keep its truncated C_S literal."""
     p57 = f[5] - f[7]
     d68 = f[6] - f[8]
     fsum = f[0] + f[1] + f[2] + f[3] + f[4] + f[5] + f[6] + f[7] + f[8]
-    rho = 1.0 + fsum if storage == "deviatoric" else fsum
-    drho = fsum if storage == "deviatoric" else None
+    deviatoric = storage == "deviatoric"
+    rho = 1.0 + fsum if deviatoric else fsum
     mom_x = (f[1] - f[3]) + p57 - d68
     mom_y = (f[2] - f[4]) + p57 + d68
     inv_rho = 1.0 / rho
-    if gx is None:
-        ux = mom_x * inv_rho
-        uy = mom_y * inv_rho
-    else:
-        # previous step's spread-corrected velocity
-        # (ImmersedBoundary.cu:249-255), recomputed from (f, force)
-        ux = (mom_x + 0.5 * gx) * inv_rho
-        uy = (mom_y + 0.5 * gy) * inv_rho
-        ug = (1.0 / CS2) * (ux * gx + uy * gy)
+    # previous step's spread-corrected velocity (ImmersedBoundary.cu:249-255)
+    ux = (mom_x + 0.5 * gx) * inv_rho
+    uy = (mom_y + 0.5 * gy) * inv_rho
+    ug = (1.0 / CS2) * (ux * gx + uy * gy)
+    u2h = (0.5 / CS2) * (ux * ux + uy * uy)
 
     omega_p = 1.0 / tau
     omega_m = 1.0 / tau2
-    hp = 0.5 * omega_p
-    hm = 0.5 * omega_m
     lam_p = 1.0 - 1.0 / (2.0 * tau)
-    lam_m = 1.0 - 1.0 / (2.0 * tau2)
-    lam_odd = lam_p if forcing == "reference" else lam_m
+    lam_odd = lam_p if forcing == "reference" else 1.0 - 1.0 / (2.0 * tau2)
 
-    # cu per pair (first member): dirs 1,2,5,6 = (1,0),(0,1),(1,1),(-1,1)
-    d1 = ux + uy
-    d2 = uy - ux
-    cu = [ux, uy, d1, d2]
-    q = [ux * ux, uy * uy, d1 * d1, d2 * d2]
-    u2h = (0.5 / CS2) * (q[0] + q[1])
-
-    # per-weight-class products: axis pairs (w=1/9), diagonal (w=1/36);
-    # f0p2/f0m2 below are DOUBLED equilibria (2*f0^+/2*f0^-), folding the
-    # 0.5 of the even/odd projections into hp/hm.
-    w_ax, w_di = WI[1], WI[5]
-    if storage == "deviatoric":
-        wd2 = [(2.0 * w_ax) * drho, (2.0 * w_di) * drho]
-    wr2 = [(2.0 * w_ax) * rho, (2.0 * w_di) * rho]
-    wrc = [(1.0 / CS2) * wr2[0], (1.0 / CS2) * wr2[1]]
-
-    f1 = [None] * 9
-    # Rest population: BGK with omega+, no forcing (LatticeBoltzmann.cu:86).
-    if storage == "deviatoric":
-        f0_0 = WI[0] * drho - rho * (WI[0] * u2h)
-    else:
-        f0_0 = rho * (WI[0] * (1.0 - u2h))
-    f1[0] = f[0] - omega_p * (f[0] - f0_0)
-    for k, (a, b) in enumerate(((1, 3), (2, 4), (5, 7), (6, 8))):
-        c = 0 if k < 2 else 1
-        tp = (0.5 / CS4) * q[k] - u2h
-        if storage == "deviatoric":
-            f0p2 = wd2[c] + wr2[c] * tp
+    out = {}
+    if 0 in dirs:
+        # rest population: BGK with omega+, no forcing (LatticeBoltzmann.cu:86)
+        if deviatoric:
+            f0_0 = WI[0] * fsum - rho * (WI[0] * u2h)
         else:
-            f0p2 = wr2[c] + wr2[c] * tp
-        f0m2 = wrc[c] * cu[k]
-        even = hp * ((f[a] + f[b]) - f0p2)
-        odd = hm * ((f[a] - f[b]) - f0m2)
-        f1a = f[a] - (even + odd)
-        f1b = f[b] - (even - odd)
-        if gx is not None:
-            w = WI[a]
-            cg = gx if CX[a] == 1 else -gx if CX[a] == -1 else 0.0
-            if CY[a] == 1:
-                cg = cg + gy
-            elif CY[a] == -1:
-                cg = cg - gy
-            s_even = w * (cu[k] * cg * (1.0 / CS4) - ug)
-            s_odd = (w / CS2) * cg
-            f1a = f1a + (lam_p * s_even + lam_odd * s_odd)
-            f1b = f1b + (lam_p * s_even - lam_odd * s_odd)
-        f1[a] = f1a
-        f1[b] = f1b
-    return f1, rho, mom_x
+            f0_0 = rho * (WI[0] * (1.0 - u2h))
+        out[0] = f[0] - omega_p * (f[0] - f0_0)
+    for k in sorted({PAIR_OF[d] for d in dirs if d}):
+        a, b = PAIRS[k]
+        cu = _cdot(a, ux, uy)
+        w = WI[a]
+        tp = (0.5 / CS4) * (cu * cu) - u2h
+        # doubled pair equilibria 2 f0+ and 2 f0- (the 0.5 of the even/odd
+        # projections folds into omega/2)
+        base = fsum if deviatoric else rho
+        f0p2 = (2.0 * w) * base + (2.0 * w) * rho * tp
+        f0m2 = (2.0 * w / CS2) * rho * cu
+        even = (0.5 * omega_p) * ((f[a] + f[b]) - f0p2)
+        odd = (0.5 * omega_m) * ((f[a] - f[b]) - f0m2)
+        cg = _cdot(a, gx, gy)
+        s_even = lam_p * (w * (cu * cg * (1.0 / CS4) - ug))
+        s_odd = lam_odd * ((w / CS2) * cg)
+        out[a] = f[a] - (even + odd) + (s_even + s_odd)
+        out[b] = f[b] - (even - odd) + (s_even - s_odd)
+    return {d: out[d] for d in dirs}
 
 
-def make_collide_rows_kernel(cfg, n_rows: int, dtype=jnp.float32,
-                             forcing: str = "trt_split",
-                             storage: str = "raw",
-                             interpret: bool | None = None):
-    """Tiny collide-only kernel for seam row slabs: (f [9,r,X],
-    force [2,r,X]) -> f1 [9,r,X].
-
-    Exists for bit-exactness, not speed: the temporal-blocking seam halos
-    (models/mucociliary._temporal_super_step) must carry f1 values that are
-    bit-identical to what the big fused kernels compute internally, and an
-    XLA-side collide (ops/reference.collide_rows) rounds differently
-    (excess-precision FMA contraction + a different algebraic form), which
-    the stiff IB feedback then amplifies.  This wraps the kernels' own
-    _collide_tile expression tree in a one-tile pallas_call so Mosaic emits
-    the same arithmetic."""
-    dtype = jnp.dtype(dtype)
-    cdt = jnp.dtype(jnp.float32) if dtype.itemsize < 4 else dtype
-    if n_rows % 8:
-        raise ValueError("seam slab rows must be 8-aligned")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    xdim = cfg.xdim
-    tau, tau2 = float(cfg.tau), float(cfg.tau2)
-
-    def kernel(f_ref, fo_ref, out_ref):
-        f = [f_ref[d].astype(cdt) for d in range(9)]
-        gx = fo_ref[0].astype(cdt)
-        gy = fo_ref[1].astype(cdt)
-        f1, _, _ = _collide_tile(f, gx, gy, tau=tau, tau2=tau2,
-                                 forcing=forcing, storage=storage)
-        for d in range(9):
-            out_ref[d] = f1[d].astype(out_ref.dtype)
-
-    call = pl.pallas_call(
-        kernel,
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM),
-                  pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((9, n_rows, xdim), cdt),
-        interpret=interpret,
-    )
-
-    def collide(f_slab, force_slab):
-        return call(f_slab.astype(cdt), force_slab.astype(cdt))
-
-    return collide
+def _wall_sources(walls):
+    """{(row, d): source direction} — the incoming populations of the wall
+    rows come from the same cell's permuted f1 (bottom halfway bounce-back,
+    top specular slip or bounce-back)."""
+    src = {}
+    if walls.bottom == "noslip":
+        src.update({("bottom", 2): 4, ("bottom", 5): 7, ("bottom", 6): 8})
+    if walls.top == "slip":
+        src.update({("top", 4): 2, ("top", 8): 5, ("top", 7): 6})
+    elif walls.top == "noslip":
+        src.update({("top", 4): 2, ("top", 7): 5, ("top", 8): 6})
+    return src
 
 
-def _temporal_kernel(
-    f_hbm, bhalos, out_ref, flux_ref, fsl, rings, sem,
-    *, n_rows, xdim, ty, n_steps, tau, tau2, forcing, walls, storage,
-    flux_lane, cdt, align=8, rdt=None,
-):
-    """K-step temporal-blocking kernel for the force-free bulk region.
+def _kernel(f_ref, g_ref, out_ref, *q_ref, ydim, xdim, band, by, bx, cdt,
+            walls, storage, collide):
+    plane = ydim * xdim
+    r = pl.program_id(0) * by + jax.lax.broadcasted_iota(jnp.int32, (by, bx), 0)
+    c = pl.program_id(1) * bx + jax.lax.broadcasted_iota(jnp.int32, (by, bx), 1)
+    live = (r < ydim) & (c < xdim)
+    # cells past the grid edge load a clamped cell and are never stored
+    rc = jnp.minimum(r, ydim - 1)
+    cc = jnp.minimum(c, xdim - 1)
 
-    The IB force field is identically zero above the force band
-    (ImmersedBoundary.cu:166-231 only writes cells within the delta support
-    of the cilia, all below row `force_band`), so the rows above it evolve
-    under pure TRT + streaming for K consecutive steps with no external
-    data except the K seam halo rows at the bottom.  One HBM pass therefore
-    advances the bulk K steps: grid step i
+    def cell(y, x):
+        """Pre-collision planes and force at cells (y, x)."""
+        idx = y * xdim + x
+        f = [pltriton.load(f_ref.at[idx + d * plane]).astype(cdt)
+             for d in range(9)]
+        in_band = y < band
+        gidx = jnp.minimum(y, band - 1) * xdim + x
+        gx = pltriton.load(g_ref.at[gidx], mask=in_band, other=0.0)
+        gy = pltriton.load(g_ref.at[gidx + band * xdim], mask=in_band,
+                           other=0.0)
+        return f, gx.astype(cdt), gy.astype(cdt)
 
-      stage 0    collides tile i           (sub-step 1)  -> rings[0]
-      stage s    assembles the streamed tile i-s of sub-step s from
-                 rings[s-1] (seam halo bhalos[s-1] at the bottom tile, top
-                 wall fixup at the top tile), collides it (sub-step s+1)
-                 -> rings[s], and accumulates the flux-column partial
-      stage K    assembles the final streamed tile i-K and writes it out,
-                 accumulating the last sub-step's flux partial
-
-    HBM traffic: read 9 + write 9 planes per K sub-steps (~72.5/K B per
-    cell-update in f32) — K-fold below the single-step kernel's floor.
-
-    Flux: the reference integrates u_x over the column x = XDIM-5 every
-    step (ImmersedBoundary.cu:259-264); the bulk rows' contribution uses
-    the post-stream state of each sub-step (force correction is zero
-    here), accumulated per sub-step into flux_ref[s, 0, 0].
-    """
-    i = pl.program_id(0)
-    n_tiles = pl.num_programs(0) - n_steps
-    K = n_steps
-    # rdt: the f1 RING dtype.  cdt (default) keeps the temporal path
-    # bit-identical to the single-step kernel (the f32/f64 contract).
-    # The bf16 fast mode stores rings (and the seam bhalos) in bf16 —
-    # per-sub-step f1 rounding in the force-free bulk, the same error
-    # class as its bf16 HBM storage — halving the dominant VMEM ring
-    # traffic (and fitting K=16 at 8192-wide grids).
-    rdt = cdt if rdt is None else rdt
-
-    # flux_lane is static here (single-chip bulk), so the column sample
-    # reduces a single 128-lane block instead of the full width — summing
-    # a one-hot-masked plane is exact in any order (adding zeros), so this
-    # stays bit-identical to the full-X reduction (and to the ghost
-    # kernel's, whose lane is a runtime flag and must keep the full sweep).
-    bw = min(128, xdim)
-    bs = min((flux_lane // bw) * bw, xdim - bw)
-    colmask = (jax.lax.broadcasted_iota(jnp.int32, (1, bw), 1)
-               == (flux_lane - bs)).astype(cdt)
-    onehot = ((jax.lax.broadcasted_iota(jnp.int32, (8, 128), 0)
-               + jax.lax.broadcasted_iota(jnp.int32, (8, 128), 1))
-              == 0).astype(jnp.float32)
-
-    def colsum(plane):
-        return jnp.sum(plane[:, bs:bs + bw] * colmask,
-                       axis=1, keepdims=True)  # (r, 1)
-
-    def start_dma(t):
-        pltpu.make_async_copy(
-            f_hbm.at[:, pl.ds(pl.multiple_of(t * ty, align), ty), :],
-            fsl.at[t % 2], sem.at[t % 2]).start()
-
-    def wait_dma(t):
-        pltpu.make_async_copy(
-            f_hbm.at[:, pl.ds(pl.multiple_of(t * ty, align), ty), :],
-            fsl.at[t % 2], sem.at[t % 2]).wait()
-
-    @pl.when(i == 0)
-    def _():
-        start_dma(0)
-        flux_ref[...] = jnp.zeros_like(flux_ref)
-
-    @pl.when(i + 1 <= n_tiles - 1)
-    def _():
-        start_dma(i + 1)
-
-    if walls.top == "slip":       # specular: 4<-2, 8<-5, 7<-6
-        top_pairs = ((4, 2), (8, 5), (7, 6))
-    elif walls.top == "noslip":   # bounce-back: 4<-2, 7<-5, 8<-6
-        top_pairs = ((4, 2), (7, 5), (8, 6))
-    else:
-        top_pairs = ()
-
-    def assemble(s, j):
-        """Streamed tile j of sub-step s+1 from rings[s] (+ seam halo at
-        j==0, top wall fixup at j==n_tiles-1).  Returns 9 (ty, X) planes."""
-        rp = (j + 2) % 3
-        rc = j % 3
-        rn = (j + 1) % 3
-        planes = [None] * 9
-        for d in range(9):
-            cx, cy = CX[d], CY[d]
-            if cy == 0:
-                rows = rings[s, rc, d]
-            elif cy == 1:
-                prev = rings[s, rp, d, ty - 1:ty, :]
-                prev = jnp.where(j == 0, bhalos[s, d, 0:1, :].astype(rdt),
-                                 prev)
-                rows = jnp.concatenate(
-                    [prev, rings[s, rc, d, 0:ty - 1, :]], axis=0)
-            else:
-                # top tile: the garbage next-tile row only feeds the last
-                # row of the cy=-1 directions, all overwritten by the top
-                # wall fixup below.
-                nxt = rings[s, rn, d, 0:1, :]
-                rows = jnp.concatenate(
-                    [rings[s, rc, d, 1:ty, :], nxt], axis=0)
-            if cx != 0:
-                rows = jnp.roll(rows, cx, axis=-1)
-            planes[d] = rows
-        is_top = j == n_tiles - 1
-        for dst, src in top_pairs:
-            fixed = rings[s, rc, src, ty - 1:ty, :]
-            planes[dst] = jnp.concatenate(
-                [planes[dst][0:ty - 1, :],
-                 jnp.where(is_top, fixed, planes[dst][ty - 1:ty, :])],
-                axis=0)
-        return planes
-
-    def add_flux(s, rho, mom_x):
-        ux_col = colsum(mom_x) / colsum(rho)
-        flux_ref[s] = flux_ref[s] + jnp.sum(ux_col).astype(
-            jnp.float32) * onehot
-
-    def ring_store(f1_d):
-        # static guard: identical graph (no astype) on the cdt-ring path
-        return f1_d if rdt == cdt else f1_d.astype(rdt)
-
-    def to_cdt(planes):
-        return planes if rdt == cdt else [p.astype(cdt) for p in planes]
-
-    # --- stage 0: collide sub-step 1 of tile i ---------------------------
-    @pl.when(i <= n_tiles - 1)
-    def _():
-        wait_dma(i)
-        f = [fsl[i % 2, d].astype(cdt) for d in range(9)]
-        f1, _, _ = _collide_tile(f, None, None, tau=tau, tau2=tau2,
-                                 forcing=forcing, storage=storage)
-        for d in range(9):
-            rings[0, i % 3, d] = ring_store(f1[d])
-
-    # --- stages 1..K-1: stream sub-step s, collide sub-step s+1 ----------
-    for s in range(1, K):
-        @pl.when(jnp.logical_and(i - s >= 0, i - s <= n_tiles - 1))
-        def _(s=s):
-            j = i - s
-            g = to_cdt(assemble(s - 1, j))
-            f1, rho, mom_x = _collide_tile(g, None, None, tau=tau, tau2=tau2,
-                                           forcing=forcing, storage=storage)
-            add_flux(s - 1, rho, mom_x)
-            for d in range(9):
-                rings[s, j % 3, d] = ring_store(f1[d])
-
-    # --- stage K: stream sub-step K -> output + its flux partial ---------
-    @pl.when(i - K >= 0)
-    def _():
-        k = i - K
-        raw = assemble(K - 1, k)
-        planes = to_cdt(raw)  # flux partials in compute precision
-        fsum_col = colsum(planes[0])
-        momx_col = None
-        for d in range(9):
-            out_ref[d] = raw[d].astype(out_ref.dtype)
-            if d > 0:
-                fsum_col = fsum_col + colsum(planes[d])
-            if CX[d] == 1:
-                c = colsum(planes[d])
-                momx_col = c if momx_col is None else momx_col + c
-            elif CX[d] == -1:
-                momx_col = momx_col - colsum(planes[d])
-        rho_col = 1.0 + fsum_col if storage == "deviatoric" else fsum_col
-        flux_ref[K - 1] = flux_ref[K - 1] + jnp.sum(
-            momx_col / rho_col).astype(jnp.float32) * onehot
+    own = collide(*cell(rc, cc), tuple(range(9)))
+    at_row = {"bottom": r == 0, "top": r == ydim - 1}
+    new = [own[0]] + [None] * 8
+    for d in range(1, 9):
+        sy = jnp.clip(rc - CY[d], 0, ydim - 1)
+        sx = cc - CX[d]
+        sx = jnp.where(sx < 0, sx + xdim, jnp.where(sx >= xdim, sx - xdim, sx))
+        v = collide(*cell(sy, sx), (d,))[d]
+        for (row, dst), s in _wall_sources(walls).items():
+            if dst == d:
+                v = jnp.where(at_row[row], own[s], v)
+        new[d] = v
+    # masked-off cells keep their own (out-of-range) index, so no store
+    # of theirs aliases a live cell
+    out_idx = r * xdim + c
+    for d in range(9):
+        pltriton.store(out_ref.at[out_idx + d * plane],
+                       new[d].astype(out_ref.dtype), mask=live)
+    if q_ref:
+        (q_ref,) = q_ref
+        fsum = new[0]
+        for d in range(1, 9):
+            fsum = fsum + new[d]
+        rho = 1.0 + fsum if storage == "deviatoric" else fsum
+        mom_x = lattice_sum(new, C[:, 0])
+        mom_y = lattice_sum(new, C[:, 1])
+        qmask = live & (r < band)
+        qidx = r * xdim + c
+        bplane = band * xdim
+        for i, v in enumerate((rho, mom_x, mom_y)):
+            pltriton.store(q_ref.at[qidx + i * bplane], v.astype(q_ref.dtype),
+                           mask=qmask)
 
 
-def make_temporal_bulk_substep(cfg, n_rows: int, n_steps: int,
-                               walls: WallSpec = REFERENCE_WALLS,
-                               dtype=jnp.float32, forcing: str = "trt_split",
-                               storage: str = "raw",
-                               interpret: bool | None = None,
-                               tile_y: int | None = None):
-    """Build the K-step bulk update for rows [force_band, ydim).
+def make_fused_substep(cfg, walls: WallSpec = REFERENCE_WALLS,
+                       dtype=jnp.float32, forcing: str = "trt_split",
+                       storage: str = "raw", emit_moments: bool = False,
+                       interpret: bool = False, block=BLOCK):
+    """The jittable fused ``(f, force_band) -> f_new`` update for one config.
 
-    Call signature:  substep(f_bulk, bhalos) -> (f_bulk_new, flux[K])
-
-    f_bulk [9, n_rows, X]; bhalos [K, 9, 8, X] whose row 0 of sub-step s
-    holds the post-collision f1 of global row force_band-1 at that
-    sub-step (the band region's top row, computed by the band leg).
-    flux[s] = sum over bulk rows of u_x at the flux column after sub-step
-    s's streaming (no force correction — the force is zero here).
-    """
+    ``force_band`` is ``[2, band, X]`` (zero above ``cfg.force_band``).  With
+    ``emit_moments`` the call returns ``(f_new, q)`` where ``q [3, band, X]``
+    holds the streamed state's ``(rho, mom_x, mom_y)`` over the band, the
+    values ``ib_band.band_moments(f_new, band)`` computes.  Walls: periodic
+    x, bottom no-slip, top slip or no-slip (the reference channel and the
+    cavity-style top); other wall sets run the jnp path.  bf16 storage
+    (deviatoric) computes in f32."""
     if walls.left != "periodic":
-        raise NotImplementedError("pallas backend requires periodic x walls")
-    if walls.top not in ("slip", "noslip"):
+        raise NotImplementedError("the fused kernel needs periodic x walls")
+    if walls.bottom != "noslip" or walls.top not in ("slip", "noslip"):
         raise NotImplementedError(
-            "temporal bulk kernel supports top=slip|noslip")
-    xdim = cfg.xdim
-    K = int(n_steps)
-    if K < 1:
-        raise ValueError("n_steps must be >= 1")
+            "the fused kernel supports bottom=noslip, top=slip|noslip")
     dtype = jnp.dtype(dtype)
-    cdt = jnp.dtype(jnp.float32) if dtype.itemsize < 4 else dtype
-    # rdt parameterizes the f1-ring dtype.  Measured NEGATIVE result (r3,
-    # recorded so it isn't retried): bf16 rings for the bf16 fast mode
-    # read 16.9k vs 16.2k MLUPS (+4% only — the ring traffic is latency-
-    # hidden better than its byte volume suggests) while the velocity
-    # noise blew up 16x (3.2e-2 vs 2.0e-3 at 2,048 steps: per-sub-step
-    # bf16 rounding of the deviatoric f1 accumulates K times per HBM
-    # round-trip, unlike the once-per-super-step storage rounding).
-    # All modes therefore keep compute-precision rings.
-    rdt = cdt
-    align = 16 if dtype.itemsize == 2 else 8
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
-    # Largest tile whose (3K+4)-ring VMEM footprint fits.
-    budget = 80 << 20
-    ty = tile_y
-    if ty is None:
-        for cand in (64, 32, 16, 8):
-            if n_rows % cand or n_rows // cand < 2 or cand % align:
-                continue
-            if ((3 * K * rdt.itemsize + 4 * cdt.itemsize)
-                    * 9 * cand * xdim) <= budget:
-                ty = cand
-                break
-        if ty is None:
-            raise ValueError(
-                f"no tile size fits K={K} temporal kernel for rows={n_rows}"
-                f" (the 3K f1 rings exceed VMEM at this XDIM — lower K;"
-                f" e.g. 8192-wide grids fit K=8)")
-    if n_rows % ty:
-        raise ValueError(f"bulk rows {n_rows} not divisible by tile {ty}")
-    n_tiles = n_rows // ty
-    if n_tiles < 2:
-        raise ValueError("temporal bulk kernel needs >= 2 row tiles")
-
-    kernel = functools.partial(
-        _temporal_kernel,
-        n_rows=n_rows, xdim=xdim, ty=ty, n_steps=K,
-        tau=float(cfg.tau), tau2=float(cfg.tau2), forcing=forcing,
-        walls=walls, storage=storage, flux_lane=int(cfg.flux_x),
-        cdt=cdt, align=align, rdt=rdt,
-    )
-    # VMEM reservation sized to the actual footprint (+ headroom for the
-    # working planes) — a flat high limit starves XLA's own VMEM prefetch
-    # for the surrounding ops and can abort compilation.
-    footprint = (
-        (3 * K) * 9 * ty * xdim * rdt.itemsize        # f1 rings
-        + (2 + 2) * 9 * ty * xdim * dtype.itemsize    # in slots + out bufs
-        + K * 9 * 8 * xdim * rdt.itemsize             # bhalos
-        + 8 * ty * xdim * cdt.itemsize                # working planes
-    )
-    vmem_limit = min(footprint + (8 << 20), 100 << 20)
-    call = pl.pallas_call(
-        kernel,
-        grid=(n_tiles + K,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),     # f_bulk
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # bhalos
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (9, ty, xdim),
-                lambda i: (0, jnp.maximum(i - K, 0), 0),
-                memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, 8, 128), lambda i: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((9, n_rows, xdim), dtype),
-            jax.ShapeDtypeStruct((K, 8, 128), jnp.float32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, 9, ty, xdim), dtype),       # input slots
-            pltpu.VMEM((K, 3, 9, ty, xdim), rdt),      # f1 ring per sub-step
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=vmem_limit),
-        cost_estimate=pl.CostEstimate(
-            flops=int(n_rows * xdim * 200 * K),
-            bytes_accessed=int(18 * n_rows * xdim * dtype.itemsize),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )
-
-    def substep(f_bulk, bhalos):
-        f_new, fluxout = call(f_bulk.astype(dtype), bhalos.astype(rdt))
-        return f_new, fluxout[:, 0, 0]
-
-    return substep
-
-
-def _band_super_kernel(
-    *refs,
-    rows, band, xdim, n_steps, c_num, cw, halo, npt, tau, tau2,
-    forcing, storage, flux_lane, cdt, walls, win_lo, fold,
-    mxu_full_precision=True, runtime_flux=False, wwin=None,
-):
-    """Resident-band temporal super-kernel: ALL K band sub-steps plus the
-    full IB coupling in ONE launch (see make_band_super_substep).
-
-    Two layouts share this body:
-
-    fold=True (whole-domain mode): ``xdim`` is the full domain width; the
-      moment planes are padded by ``halo`` wrapped columns on each side, the
-      cilium windows live at ``win_lo[m] = m*cw`` in PADDED coords, and the
-      overlap-add force strip is circularly folded back to ``xdim`` columns
-      at the end (exact periodic min-image).
-
-    fold=False (x-tiled mode, make_band_super_substep_tiled): ``xdim`` is
-      one extended tile's width (interior + ghost columns on each side);
-      windows live at the static BLOCK-coordinate offsets ``win_lo`` and the
-      force strip IS the block (no fold — the caller discards the ghost
-      columns, which neighbouring tiles compute redundantly).  flux_lane is
-      None on tiles that don't own the flux column.
-
-    runtime_flux=True (the x-SHARDED per-shard variant,
-    make_band_super_substep_xsharded): the flux lane is a runtime scalar
-    flag ([lane_local, owned], scalar-prefetched as the first ref) because
-    inside shard_map every shard runs ONE program but only one owns the
-    flux column; the mask then sweeps the full block width (bit-identical
-    to the static-lane block reduction — summing a one-hot-masked plane is
-    exact in any order).
-    """
-    from cuda_iblb_11_tpu.ops.ib import delta_1d
-
-    if runtime_flux:
-        flags, refs = refs[0], refs[1:]
-    (f_in, force_in, us_ref, eps_ref, axl_ref, fx_ref, ay_ref, fy_ref,
-     fband_out, bh_out, force_out, flux_out,
-     fsc, f1sc, fosc, fpad, sem) = refs
-
-    s = pl.program_id(0)
-    K = n_steps
-    # per-window width: the natural per-cilium window (128-aligned), or
-    # the caller's wider phase-tolerant window (x-sharded meshes whose
-    # xl is not a c_space multiple hold their cilia at a common runtime
-    # phase r in [0, cw) within uniform-grid windows of width W + cw;
-    # the callers bake r into the runtime point anchors)
-    W = wwin if wwin is not None else cw + 2 * halo
-
-    @pl.when(s == 0)
-    def _load():
-        pltpu.make_async_copy(f_in, fsc, sem.at[0]).start()
-        pltpu.make_async_copy(force_in, fosc, sem.at[1]).start()
-        pltpu.make_async_copy(f_in, fsc, sem.at[0]).wait()
-        pltpu.make_async_copy(force_in, fosc, sem.at[1]).wait()
-
-    # --- collide the whole extended block (force only below `band`) ------
-    gx = fosc[0].astype(cdt)
-    gy = fosc[1].astype(cdt)
-    fA = [fsc[d, :band].astype(cdt) for d in range(9)]
-    f1A, _, _ = _collide_tile(fA, gx, gy, tau=tau, tau2=tau2,
-                              forcing=forcing, storage=storage)
-    for d in range(9):
-        f1sc[d, :band] = f1A[d]
-    fB = [fsc[d, band:].astype(cdt) for d in range(9)]
-    f1B, _, _ = _collide_tile(fB, None, None, tau=tau, tau2=tau2,
-                              forcing=forcing, storage=storage)
-    for d in range(9):
-        f1sc[d, band:] = f1B[d]
-
-    # seam halo for the bulk kernel: post-collision f1 of row band-1
-    bh_out[0] = jnp.zeros((9, 8, xdim), bh_out.dtype)
-    for d in range(9):
-        bh_out[0, d, 0:1, :] = f1sc[d, band - 1:band, :]
-
-    # --- pull-form stream, in place; band moments accumulated in-register
-    fsum = mom_x = mom_y = None
-    for d in range(9):
-        cx, cy = CX[d], CY[d]
-        f1d = f1sc[d]
-        if cy == 0:
-            new = f1d
-        elif cy == 1:
-            # row r pulls r-1; row 0 garbage, overwritten by the wall fixup
-            # below (cy=1 dirs are exactly the bottom-wall-fixed 2/5/6)
-            new = jnp.concatenate([f1d[0:1], f1d[:rows - 1]], axis=0)
-        else:
-            # row r pulls r+1; the garbage top row is the ghost trapezoid
-            new = jnp.concatenate([f1d[1:], f1d[rows - 1:rows]], axis=0)
-        if cx != 0:
-            new = jnp.roll(new, cx, axis=-1)
-        if walls.bottom == "noslip" and cy == 1:
-            opp = {2: 4, 5: 7, 6: 8}[d]
-            new = jnp.concatenate([f1sc[opp, 0:1, :], new[1:]], axis=0)
-        fsc[d] = new.astype(fsc.dtype)
-        nb = new[:band]
-        fsum = nb if fsum is None else fsum + nb
-        if CX[d] == 1:
-            mom_x = nb if mom_x is None else mom_x + nb
-        elif CX[d] == -1:
-            mom_x = mom_x - nb
-        if CY[d] == 1:
-            mom_y = nb if mom_y is None else mom_y + nb
-        elif CY[d] == -1:
-            mom_y = mom_y - nb
-    rho = 1.0 + fsum if storage == "deviatoric" else fsum
-
-    # padded moment planes: halo columns wrap periodically so a window
-    # slice sees exactly the min-image delta neighbourhood
-    def padx(p):
-        return jnp.concatenate([p[:, xdim - halo:], p, p[:, :halo]], axis=1)
-
-    # the 3 moment planes stack into ONE lhs so each cilium needs a single
-    # interpolation dot (and one spread dot) — identical arithmetic per
-    # output element, ~half the serialized 6-pass MXU chains at HIGHEST
-    if fold:
-        qcat = jnp.concatenate([padx(rho), padx(mom_x), padx(mom_y)], axis=0)
-    else:
-        # tiled mode: the block already carries the ghost columns
-        qcat = jnp.concatenate([rho, mom_x, mom_y], axis=0)
-    fpad[...] = jnp.zeros_like(fpad)
-
-    # --- IB coupling, one 128-wide point block per cilium ----------------
-    yy = jax.lax.broadcasted_iota(jnp.int32, (band, npt), 0)
-    for m in range(c_num):
-        ay_m = ay_ref[s, m].reshape(1, npt)
-        fy_m = fy_ref[s, m].reshape(1, npt).astype(cdt)
-        dy = delta_1d(jnp.abs((yy - ay_m).astype(cdt) - fy_m))  # [band,npt]
-        ax_m = axl_ref[s, m].reshape(npt, 1)
-        fx_m = fx_ref[s, m].reshape(npt, 1).astype(cdt)
-        ww = jax.lax.broadcasted_iota(jnp.int32, (npt, W), 1)
-        dxw = delta_1d(jnp.abs((ww - ax_m).astype(cdt) - fx_m))  # [npt,W]
-        lo = win_lo[m]  # static window start within the qcat strip
-        # full-precision MXU passes: the TPU's default f32 dot runs
-        # reduced-precision bf16 passes, which the stiff IB feedback
-        # amplifies to ~6e-4 velocity error at 2048^2 (measured r3 vs
-        # the f64 oracle; 4.8e-6 with this fix).  Mosaic supports only
-        # DEFAULT|HIGHEST in-kernel; HIGHEST costs ~9% of the K=16 rate
-        # (13.55k -> 12.3k MLUPS) — the accuracy claim is worth it.  The
-        # bf16 fast mode skips it: its ~2e-3 storage-floor noise dwarfs MXU
-        # rounding, so the 6 passes would buy nothing.
-        def dot_hi(a, b, dims):
-            """Full-precision-enough window contraction.  cdt == f32 on
-            TPU: a manual two-term bf16 split (3 single-pass MXU dots —
-            the classic Precision.HIGH decomposition, which Mosaic does
-            not expose in-kernel).  Measured round 3 on v5e at
-            2048^2/2048 steps: 3.5e-6 velocity rel-L2 from the
-            single-step path — same class as the 6-pass HIGHEST (3.5e-6)
-            vs 6.3e-4 for the 1-pass DEFAULT — at 13.46k MLUPS vs 12.6k
-            (HIGHEST) / 13.55k (DEFAULT): ~90% of HIGHEST's cost
-            reclaimed.  f64 (interpret/oracle runs) and the bf16 fast
-            mode (its ~2e-3 storage-floor noise dwarfs MXU rounding) use a
-            plain dot."""
-            dims = (dims, ((), ()))
-            if not mxu_full_precision or cdt != jnp.float32:
-                return jax.lax.dot_general(a, b, dims,
-                                           preferred_element_type=cdt)
-            ah = a.astype(jnp.bfloat16)
-            al = (a - ah.astype(cdt)).astype(jnp.bfloat16)
-            bh = b.astype(jnp.bfloat16)
-            bl = (b - bh.astype(cdt)).astype(jnp.bfloat16)
-
-            def d(x, y):
-                return jax.lax.dot_general(x, y, dims,
-                                           preferred_element_type=cdt)
-
-            return d(ah, bh) + (d(al, bh) + d(ah, bl))
-
-        t2 = dot_hi(qcat[:, lo:lo + W], dxw,
-                    (((1,), (1,))))                      # [3*band, npt]
-        iq = [jnp.sum(dy * t2[q * band:(q + 1) * band], axis=0,
-                      keepdims=True) for q in range(3)]  # 3 x [1, npt]
-        us_x = us_ref[s, 0, m].reshape(1, npt).astype(cdt)
-        us_y = us_ref[s, 1, m].reshape(1, npt).astype(cdt)
-        em = eps_ref[s, m].reshape(1, npt).astype(cdt)
-        a_x = (2.0 * (us_x * iq[0] - iq[1])) * em       # [1, npt]
-        a_y = (2.0 * (us_y * iq[0] - iq[2])) * em
-        sxy = dot_hi(jnp.concatenate([dy * a_x, dy * a_y], axis=0), dxw,
-                     (((1,), (0,))))                     # [2*band, W]
-        fpad[0, :, lo:lo + W] = fpad[0, :, lo:lo + W] + sxy[:band]
-        fpad[1, :, lo:lo + W] = fpad[1, :, lo:lo + W] + sxy[band:]
-
-    # circular fold of the overlap-add halos -> new force field
-    if fold:
-        for c in range(2):
-            mid = fpad[c, :, halo:halo + xdim]
-            left = fpad[c, :, :halo]    # wraps onto the right end
-            right = fpad[c, :, halo + xdim:]  # wraps onto the left end
-            folded = jnp.concatenate(
-                [mid[:, :halo] + right, mid[:, halo:xdim - halo],
-                 mid[:, xdim - halo:] + left], axis=1)
-            fosc[c] = folded
-    else:
-        for c in range(2):
-            fosc[c] = fpad[c]
-
-    # --- flux-column partial (band rows; force correction included) ------
-    # Three flavors, deliberately: fold/static-lane and the tiled
-    # factory's static two-variant keep the cheap static 128-lane block
-    # slice (single-chip speed); runtime_flux (x-sharded SPMD) must sweep
-    # the full width with a runtime one-hot mask — extracting the column
-    # by masked per-row sums is EXACT (one-hot sums have a single term)
-    # and keeps the divides per-row instead of per-cell.
-    if runtime_flux:
-        lane = flags[0]
-        owned = flags[1] == 1
-        w_blk = mom_x.shape[1]
-        lmask = (jax.lax.broadcasted_iota(jnp.int32, (band, w_blk), 1)
-                 == lane).astype(cdt)
-
-        def csum(p):
-            return jnp.sum(p * lmask, axis=1, keepdims=True)  # [band, 1]
-
-        ux_col = (csum(mom_x) + 0.5 * csum(fosc[0])) / csum(rho)
-        onehot = ((jax.lax.broadcasted_iota(jnp.int32, (8, 128), 0)
-                   + jax.lax.broadcasted_iota(jnp.int32, (8, 128), 1))
-                  == 0).astype(cdt)
-        flux_out[0] = jnp.where(owned, jnp.sum(ux_col),
-                                jnp.zeros((), cdt)) * onehot
-    elif flux_lane is None:
-        flux_out[0] = jnp.zeros((8, 128), flux_out.dtype)
-    else:
-        # right-edge clamp mirrors _temporal_kernel/_pipelined_kernel:
-        # interpret-mode block widths need not be 128-multiples
-        w_blk = mom_x.shape[1]
-        bw = min(128, w_blk)
-        bs = min((flux_lane // bw) * bw, w_blk - bw)
-        lmask = (jax.lax.broadcasted_iota(jnp.int32, (band, bw), 1)
-                 == (flux_lane - bs)).astype(cdt)
-        ux_b = ((mom_x[:, bs:bs + bw] + 0.5 * fosc[0, :, bs:bs + bw])
-                / rho[:, bs:bs + bw])
-        onehot = ((jax.lax.broadcasted_iota(jnp.int32, (8, 128), 0)
-                   + jax.lax.broadcasted_iota(jnp.int32, (8, 128), 1))
-                  == 0).astype(cdt)
-        flux_out[0] = jnp.sum(ux_b * lmask) * onehot
-
-    @pl.when(s == K - 1)
-    def _finish():
-        for d in range(9):
-            fband_out[d] = fsc[d, :band].astype(fband_out.dtype)
-        force_out[...] = fosc[...]
-
-
-def _band_super_geometry(cfg, pad, K, walls, dtype, cdt, interpret, pattern):
-    """Shared eligibility checks + window halo for the band super-kernel
-    factories.  Returns (c_space, halo)."""
-    # the kernel hard-codes the reference channel's edge handling: the
-    # periodic lane roll and the bottom-wall bounce-back fixup (the top
-    # edge is the ghost trapezoid, so walls.top is the bulk kernel's job)
-    if walls.left != "periodic":
-        raise NotImplementedError("band super-kernel requires periodic x")
-    if walls.bottom != "noslip":
-        raise NotImplementedError(
-            "band super-kernel supports bottom=noslip only")
-    cw = cfg.c_space
-    if not interpret and cw % 128:
-        raise ValueError("band super-kernel requires c_space % 128 == 0")
-    if cfg.length > 128:
-        raise ValueError("band super-kernel requires <= 128 nodes/cilium")
-    if pad < K:
-        raise ValueError("ghost pad must cover K sub-steps")
-    # halo such that every window [m*cw - halo, (m+1)*cw + halo) provably
-    # contains its cilium's delta support (beat envelope + |frac| + 1.5,
-    # rounded up with 1 cell of slack).  The envelope is evaluated for the
-    # ACTUAL beat pattern of the simulation — a pattern with a wider
-    # x-excursion gets a wider (or rejected) window rather than silently
-    # truncated IB support.
-    from cuda_iblb_11_tpu.models.cilia import CiliaModel
-
-    bound = CiliaModel(cfg, dtype=cdt,
-                       pattern=pattern).beat_x_bound() + 3.0
-    halo = max(0, -(-int(bound - cw / 2 + 1) // 128) * 128) \
-        if bound > cw / 2 else 0
-    if not interpret and halo % 128:
-        raise ValueError("window halo must be 128-aligned")
-    if cw + 2 * halo > cfg.xdim:
-        raise ValueError("cilium window exceeds the domain width")
-    return cw, halo
-
-
-def _band_super_resident(width, rows, band, fpad_extra, dtype, cdt):
-    """VMEM footprint (bytes) of one band super-kernel instance of the
-    given block width.  fpad_extra = 2*halo in fold mode, 0 in tiled mode
-    (the tiled block carries its ghost columns in `width`)."""
-    return (
-        9 * rows * 2 * cdt.itemsize                  # fsc + f1sc (both cdt)
-        + 9 * band * dtype.itemsize                  # fband_out
-        + 9 * 8 * cdt.itemsize                       # one bhalos row block
-        + 2 * band * 2 * cdt.itemsize                # fosc + force_out
-        + 2 * band * cdt.itemsize                    # fpad (per-col share)
-    ) * width + 2 * band * fpad_extra * cdt.itemsize
-
-
-def _band_super_reach(cw, halo, K, interpret):
-    """Ghost-column margin gx for x-blocked band super-kernels: edge
-    errors propagate < 8 columns per sub-step through streaming + the
-    delta reach of the overlapping-window IB coupling, plus the
-    one-window missing-force margin from excluded cilia (the bound
-    derived in make_band_super_substep_tiled's docstring) — shared so
-    the tiled and x-sharded factories cannot desync."""
-    reach = (cw + 2 * halo) + 8 * K
-    return reach if interpret else -(-reach // 128) * 128
-
-
-def _band_super_block_windows(c_num, cw, halo, block_w, gx, n_blocks):
-    """Per-block window subsets: every periodic lift of a cilium window
-    lying fully inside each extended block
-    [t*block_w - gx, (t+1)*block_w + gx).  Returns (lifts, win_lo) with
-    RAW (unwrapped) lift indices — callers wrap (% c_num) or assert the
-    cross-block rotation property as needed."""
-    ww = cw + 2 * halo
-    txe = block_w + 2 * gx
-    lifts, win_lo = [], []
-    for t in range(n_blocks):
-        lo_ext = t * block_w - gx
-        tid, tlo = [], []
-        for mt in range(-c_num, 2 * c_num):
-            w0 = mt * cw - halo
-            if w0 >= lo_ext and w0 + ww <= lo_ext + txe:
-                tid.append(mt)
-                tlo.append(w0 - lo_ext)
-        lifts.append(tuple(tid))
-        win_lo.append(tuple(tlo))
-    return lifts, win_lo
-
-
-def _build_band_super_call(cfg, rows, band, K, width, win_lo, fold,
-                           flux_lane, c_sub, halo, dtype, cdt, walls,
-                           forcing, storage, interpret,
-                           runtime_flux=False, wwin=None):
-    """pallas_call for one band super-kernel instance (see
-    _band_super_kernel for the fold=True/False layouts).  runtime_flux
-    prepends a scalar-prefetched int32 [lane, owned] flags argument (the
-    x-sharded per-shard variant); wwin overrides the per-window width
-    (the phase-tolerant layout)."""
-    kernel = functools.partial(
-        _band_super_kernel,
-        rows=rows, band=band, xdim=width, n_steps=K, c_num=c_sub,
-        cw=cfg.c_space, halo=halo, npt=128, tau=float(cfg.tau),
-        tau2=float(cfg.tau2), forcing=forcing, storage=storage,
-        flux_lane=flux_lane, cdt=cdt, walls=walls, win_lo=tuple(win_lo),
-        fold=fold, mxu_full_precision=dtype.itemsize >= 4,
-        runtime_flux=runtime_flux, wwin=wwin,
-    )
-    fpad_w = width + 2 * halo if fold else width
-    in_specs = [
-        pl.BlockSpec(memory_space=pl.ANY),       # f_ext
-        pl.BlockSpec(memory_space=pl.ANY),       # force
-        pl.BlockSpec(memory_space=pltpu.VMEM),   # u_s [K,2,c,128]
-        pl.BlockSpec(memory_space=pltpu.VMEM),   # eps [K,c,128]
-        pl.BlockSpec(memory_space=pltpu.VMEM),   # axl int32
-        pl.BlockSpec(memory_space=pltpu.VMEM),   # fx
-        pl.BlockSpec(memory_space=pltpu.VMEM),   # ay int32
-        pl.BlockSpec(memory_space=pltpu.VMEM),   # fy
-    ]
-    out_specs = [
-        pl.BlockSpec((9, band, width), lambda s, *_: (0, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, 9, 8, width), lambda s, *_: (s, 0, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((2, band, width), lambda s, *_: (0, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, 8, 128), lambda s, *_: (s, 0, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((9, band, width), dtype),
-        jax.ShapeDtypeStruct((K, 9, 8, width), cdt),
-        jax.ShapeDtypeStruct((2, band, width), cdt),
-        jax.ShapeDtypeStruct((K, 8, 128), cdt),
-    ]
-    scratch_shapes = [
-        # f state is kept at the COMPUTE dtype across the whole
-        # super-step: with bf16 storage, a bf16 resident block would
-        # re-round the band state every sub-step exactly where the
-        # stiff IB feedback lives; f32 scratch confines the bf16
-        # rounding to the once-per-K-steps HBM boundary.
-        pltpu.VMEM((9, rows, width), cdt),       # f state
-        pltpu.VMEM((9, rows, width), cdt),       # f1
-        pltpu.VMEM((2, band, width), cdt),       # force
-        pltpu.VMEM((2, band, fpad_w), cdt),      # overlap-add strip
-        pltpu.SemaphoreType.DMA((2,)),
-    ]
-    compiler_params = pltpu.CompilerParams(
-        vmem_limit_bytes=min(
-            (9 * rows * 2 * cdt.itemsize
-             + 9 * band * dtype.itemsize
-             + 8 * band * cdt.itemsize
-             + 2 * band * 2 * cdt.itemsize
-             + 14 * band * cdt.itemsize) * width + (24 << 20),
-            110 << 20))
-    cost = pl.CostEstimate(
-        flops=int(rows * width * 200 * K),
-        bytes_accessed=int(20 * rows * width * dtype.itemsize),
-        transcendentals=0,
-    )
-    if runtime_flux:
-        return pl.pallas_call(
-            kernel,
-            grid_spec=pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=1,
-                grid=(K,),
-                in_specs=in_specs,
-                out_specs=out_specs,
-                scratch_shapes=scratch_shapes,
-            ),
-            out_shape=out_shape,
-            compiler_params=compiler_params,
-            cost_estimate=cost,
-            interpret=interpret,
-        )
-    return pl.pallas_call(
-        kernel,
-        grid=(K,),
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=scratch_shapes,
-        compiler_params=compiler_params,
-        cost_estimate=cost,
-        interpret=interpret,
-    )
-
-
-def make_band_super_substep(cfg, pad: int, n_steps: int,
-                            walls: WallSpec = REFERENCE_WALLS,
-                            dtype=jnp.float32, forcing: str = "trt_split",
-                            storage: str = "raw",
-                            interpret: bool | None = None,
-                            pattern: str = "no_mucus"):
-    """Resident-band temporal super-step: K band sub-steps + IB coupling in
-    ONE Pallas launch.
-
-    The per-sub-step band leg previously cost a kernel launch (re-reading
-    the whole extended band from HBM) plus XLA-side delta factors, band
-    matmuls, spreading and the flux combine.  Here the extended band
-    (band + pad ghost rows of the bulk bottom) lives in VMEM for the whole
-    super-step; each grid step s
-      1. collides the block (force below `band`, none above), exposing the
-         f1 of row band-1 as the bulk kernel's seam halo bhalos[s];
-      2. streams in place (bottom wall fixup; the garbage top row is the
-         standard ghost trapezoid, never reaching the band within K steps),
-         accumulating the band moments (rho, mom) in-register;
-      3. evaluates the IB coupling per cilium on 128-point blocks: the
-         separable delta factors are built on the VPU from the anchored
-         point coordinates, and interpolation/spreading are per-cilium
-         [band, W] x [W, 128] MXU contractions over a W = c_space + 2*halo
-         column window around the cilium base (the beat envelope bound,
-         models/cilia.beat_x_bound, proves each cilium's delta support
-         stays inside its window; window overlaps are summed and folded
-         periodically — exactly the min-image dense form, re-associated);
-      4. samples the flux column (half-force corrected, band rows).
-
-    HBM traffic per super-step: ONE read + write of the band instead of K.
-
-    Returns substep(f_ext, force, u_s, eps, axl, fx, ay, fy) ->
-    (f_band [9,band,X], bhalos [K,9,8,X], force [2,band,X], flux [K])
-    with point arrays laid out [K, (2,)? c_num, 128] (nodes padded 96->128;
-    axl is the WINDOW-LOCAL anchor x: anchor_x - (m*c_space - halo)).
-    """
-    xdim = cfg.xdim
-    band = cfg.force_band
-    K = int(n_steps)
-    rows = band + pad
-    dtype = jnp.dtype(dtype)
-    cdt = jnp.dtype(jnp.float32) if dtype.itemsize < 4 else dtype
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    cw, halo = _band_super_geometry(cfg, pad, K, walls, dtype, cdt,
-                                    interpret, pattern)
-    # The whole extended band lives in VMEM (scratch f + f1 + force +
-    # overlap pad + the band/seam output buffers); at large XDIM that
-    # exceeds the chip's ~128 MB and Mosaic would fail at compile time —
-    # reject here so callers fall back to the x-tiled super-kernel
-    # (make_band_super_substep_tiled) or the per-sub-step leg.
-    resident = _band_super_resident(xdim, rows, band, 2 * halo, dtype, cdt)
-    if not interpret and resident > (100 << 20):
-        raise ValueError(
-            f"band super-kernel VMEM footprint {resident >> 20} MB exceeds "
-            f"the ~100 MB budget at XDIM={xdim}; use the per-sub-step leg")
-
-    call = _build_band_super_call(
-        cfg, rows, band, K, xdim, tuple(m * cw for m in range(cfg.c_num)),
-        True, int(cfg.flux_x), cfg.c_num, halo, dtype, cdt, walls, forcing,
-        storage, interpret)
-
-    def substep(f_ext, force, u_s, eps, axl, fx, ay, fy):
-        f_band, bhalos, force_new, flux = call(
-            f_ext.astype(cdt), force.astype(cdt), u_s.astype(cdt),
-            eps.astype(cdt), axl.astype(jnp.int32), fx.astype(cdt),
-            ay.astype(jnp.int32), fy.astype(cdt))
-        return f_band, bhalos, force_new, flux[:, 0, 0]
-
-    substep.halo = halo
-    return substep
-
-
-def make_band_super_substep_tiled(cfg, pad: int, n_steps: int,
-                                  walls: WallSpec = REFERENCE_WALLS,
-                                  dtype=jnp.float32,
-                                  forcing: str = "trt_split",
-                                  storage: str = "raw",
-                                  interpret: bool | None = None,
-                                  pattern: str = "no_mucus",
-                                  tile_x: int | None = None):
-    """X-tiled resident-band temporal super-step: drop-in for
-    make_band_super_substep on grids too wide for one VMEM-resident block
-    (BASELINE config-5's XDIM=8192, where the whole-domain kernel needs
-    ~150 MB).
-
-    The domain splits into XDIM/tile_x tiles; each tile runs the SAME
-    super-kernel on an extended block of ``tile_x + 2*gx`` columns whose
-    ghost columns it computes redundantly (fold=False layout of
-    _band_super_kernel), and only the interior columns are kept — the
-    x-analogue of the ghost-row trapezoid the temporal kernels already use
-    in y, at ~2*gx/tile_x extra band-leg flops (the band is <2% of the
-    rows at the widths where this path engages).
-
-    Correctness (ghost-margin bound): with the tile's cilium subset chosen
-    as every cilium whose window lies fully inside the extended block,
-    errors enter only at the block edges and propagate inward at most
-      1 (streaming)  +  (1.5 + 1) (delta interp reach incl. |frac|)
-      +  (1.5 + 1) (delta spread reach)  =  6 < 8  columns per sub-step
-    — through the overlapping-window IB coupling as well, because both the
-    interpolation and the spreading of a NODE touch only columns within
-    1.5+|frac| of it, so a node is affected only once the edge error is
-    within that reach.  The excluded cilia (windows sticking out of the
-    block) leave a missing-force region of at most one window width
-    W = c_space + 2*halo at each edge.  Hence ghost columns
-        gx >= W + 8*K
-    keep every interior column (and the interior slice of the seam halo
-    bhalos consumed by the bulk kernel) EXACT after K sub-steps.  gx is
-    rounded up to a lane multiple; tiles are multiples of c_space so all
-    tiles share one static window layout (two compiled kernel variants:
-    with and without the flux column).
-
-    Requires tile_x + 2*gx <= XDIM (otherwise a cilium's periodic images
-    would both fall inside one block and double-spread; at such widths the
-    whole-domain kernel fits anyway — use it).
-
-    Same signature, shapes and ``halo`` attribute as
-    make_band_super_substep; cites: flux column ImmersedBoundary.cu:259-264,
-    spreading/interpolation ImmersedBoundary.cu:94-264.
-    """
-    xdim = cfg.xdim
-    band = cfg.force_band
-    K = int(n_steps)
-    rows = band + pad
-    dtype = jnp.dtype(dtype)
-    cdt = jnp.dtype(jnp.float32) if dtype.itemsize < 4 else dtype
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    cw, halo = _band_super_geometry(cfg, pad, K, walls, dtype, cdt,
-                                    interpret, pattern)
-    c_num = cfg.c_num
-    gx = _band_super_reach(cw, halo, K, interpret)
-    budget = 100 << 20
-
-    def ok(tx):
-        txe = tx + 2 * gx
-        return (tx % cw == 0 and xdim % tx == 0 and xdim // tx >= 2
-                and txe <= xdim
-                and (interpret or tx % 128 == 0)
-                and _band_super_resident(txe, rows, band, 0, dtype, cdt)
-                <= budget)
-
-    if tile_x is not None:
-        if not ok(tile_x):
-            raise ValueError(f"tile_x={tile_x} is not a valid band tile "
-                             f"(gx={gx}, xdim={xdim})")
-        tx = tile_x
-    else:
-        tx = next((m * cw for m in range(xdim // (2 * cw), 0, -1)
-                   if ok(m * cw)), None)
-        if tx is None:
-            raise ValueError(
-                f"no x-tile fits the band super-kernel at XDIM={xdim} "
-                f"(gx={gx}); use the per-sub-step band leg")
-    n_tiles = xdim // tx
-    txe = tx + 2 * gx
-
-    # Per-tile cilium subsets: every periodic lift of a window that lies
-    # fully inside the extended block.  Tiles are c_space-periodic, so the
-    # local window offsets are identical across tiles — assert it, and
-    # compile exactly two kernel variants (flux owner / not).
-    lifts, win_lo = _band_super_block_windows(c_num, cw, halo, tx, gx,
-                                              n_tiles)
-    ids = [tuple(m % c_num for m in t) for t in lifts]
-    assert all(w == win_lo[0] for w in win_lo), \
-        "tile window layout must be uniform (tile_x % c_space == 0)"
-    c_sub = len(ids[0])
-
-    t_flux = int(cfg.flux_x) // tx
-    flux_local = int(cfg.flux_x) - t_flux * tx + gx
-    call_plain = _build_band_super_call(
-        cfg, rows, band, K, txe, win_lo[0], False, None, c_sub, halo,
-        dtype, cdt, walls, forcing, storage, interpret)
-    call_flux = _build_band_super_call(
-        cfg, rows, band, K, txe, win_lo[0], False, flux_local, c_sub, halo,
-        dtype, cdt, walls, forcing, storage, interpret)
-
-    import numpy as np
-
-    idx = [np.asarray(i, np.int32) for i in ids]
-
-    def substep(f_ext, force, u_s, eps, axl, fx, ay, fy):
-        fb, bh, fo = [], [], []
-        flux = None
-        # periodic pad ONCE per super-step; each tile is then a static
-        # slice (a per-tile jnp.roll would materialize n_tiles full-width
-        # copies of the band block)
-        def padx(a):
-            return jnp.concatenate(
-                [a[..., xdim - gx:], a, a[..., :gx]], axis=-1)
-
-        f_pad = padx(f_ext.astype(cdt))
-        fo_pad = padx(force.astype(cdt))
-        for t in range(n_tiles):
-            lo = t * tx
-            out = (call_flux if t == t_flux else call_plain)(
-                f_pad[..., lo:lo + txe], fo_pad[..., lo:lo + txe],
-                u_s[:, :, idx[t], :].astype(cdt),
-                eps[:, idx[t], :].astype(cdt),
-                axl[:, idx[t], :].astype(jnp.int32),
-                fx[:, idx[t], :].astype(cdt),
-                ay[:, idx[t], :].astype(jnp.int32),
-                fy[:, idx[t], :].astype(cdt))
-            fband_t, bh_t, force_t, flux_t = out
-            fb.append(fband_t[..., gx:gx + tx])
-            bh.append(bh_t[..., gx:gx + tx])
-            fo.append(force_t[..., gx:gx + tx])
-            if t == t_flux:
-                flux = flux_t[:, 0, 0]
-        return (jnp.concatenate(fb, axis=-1), jnp.concatenate(bh, axis=-1),
-                jnp.concatenate(fo, axis=-1), flux)
-
-    substep.halo = halo
-    substep.tile_x = tx
-    substep.gx = gx
-    return substep
-
-
-def make_band_super_substep_xsharded(cfg, pad: int, n_steps: int,
-                                     walls: WallSpec = REFERENCE_WALLS,
-                                     dtype=jnp.float32,
-                                     forcing: str = "trt_split",
-                                     storage: str = "raw",
-                                     interpret: bool | None = None,
-                                     pattern: str = "no_mucus", *,
-                                     xl: int, n_x: int):
-    """Per-SHARD resident-band super-step for x-sharded meshes: each shard
-    runs the x-tiled band super-kernel on its own ``xl`` columns extended
-    by ``gx`` ghost columns ppermuted ONCE per super-step from the
-    x-neighbours — ONE launch for all K band sub-steps with ZERO
-    collectives inside (vs the tiled per-sub-step leg's K launches + K
-    psum('x') rounds).  Correctness is make_band_super_substep_tiled's
-    ghost-margin bound verbatim with tile_x = xl: gx >= W + 8K keeps every
-    interior column (and the interior slice of the seam bhalos) exact
-    after K sub-steps, and every force column is computed exactly by its
-    owner because each window touching it lies fully inside the owner's
-    extended block (the overlapping ghost-region force is recomputed
-    redundantly and identically by both neighbours).
-
-    The flux column is sampled with RUNTIME [lane_local, owned] flags
-    (scalar prefetch) so all shards run one SPMD-uniform program inside
-    shard_map (the static-flux-lane two-variant trick of the tiled
-    factory cannot differ per shard there).
-
-    Two window layouts:
-
-    * xl % c_space == 0 (shard-uniform): every shard sees the identical
-      static per-cilium window layout, and shard ix's j-th window holds
-      cilium (m0 + ix*c_step + j) mod c_num (attributes .m0/.c_step;
-      window-local point coordinates are lift-invariant, so the caller
-      just rolls the global per-cilium blocks).
-    * xl % c_space != 0 (PHASE-GENERAL, VERDICT r3 item 8): all cilia of
-      a shard share one runtime phase r = (mstart*cw - halo - ix*xl +
-      gx) in [0, cw) relative to a uniform static window grid
-      lo_j = j*cw of WIDENED windows (width W + cw, so any phase fits);
-      the caller adds r to the runtime x-anchors, rolls the global
-      per-cilium blocks by the runtime mstart, and zeroes eps on slots
-      whose natural window falls outside the block (.phase_general /
-      .cw / .wcov attributes; gx carries an extra cw of ghost columns
-      for the phase margin).  Same kernel, windows merely wider — the
-      per-window MXU dots grow by cw columns.
-
-    Common requirements: gx <= xl (one-hop ghost exchange) and
-    xl + 2*gx <= XDIM (no double periodic image inside one block).
-
-    Returns substep(flags, f_ext_block, force_block, u_s, eps, axl, fx,
-    ay, fy) -> (f_band, bhalos, force, flux[K]) in EXTENDED block coords
-    ([..., xl + 2*gx]).  Also exposes .gx/.halo/.width/.c_sub.
-    """
-    xdim = cfg.xdim
-    band = cfg.force_band
-    K = int(n_steps)
-    rows = band + pad
-    dtype = jnp.dtype(dtype)
-    cdt = jnp.dtype(jnp.float32) if dtype.itemsize < 4 else dtype
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    cw, halo = _band_super_geometry(cfg, pad, K, walls, dtype, cdt,
-                                    interpret, pattern)
-    uniform = xl % cw == 0
-    W = cw + 2 * halo
-    gx = _band_super_reach(cw, halo, K, interpret)
-    wwin = None
-    if not uniform:
-        # phase margin: the widened windows cover any phase r in [0, cw)
-        gx += cw
-        wwin = W + cw
-    if gx > xl:
-        raise ValueError(
-            f"x-sharded band super needs gx={gx} <= xl={xl} (one-hop "
-            f"ghost-column exchange)")
-    txe = xl + 2 * gx
-    if txe > xdim:
-        raise ValueError(
-            f"extended shard block {txe} > XDIM={xdim}: a cilium's "
-            f"periodic images would both fall inside one block")
-    if _band_super_resident(txe, rows, band, 0, dtype, cdt) > (100 << 20):
-        raise ValueError(
-            f"x-sharded band super block ({txe} cols) exceeds VMEM")
-
-    if uniform:
-        ids, win_lo = _band_super_block_windows(cfg.c_num, cw, halo, xl,
-                                                gx, n_x)
-        step = xl // cw
-        assert all(w == win_lo[0] for w in win_lo), \
-            "shard window layout must be uniform (xl % c_space == 0)"
-        assert all(ids[t] == tuple(m + t * step for m in ids[0])
-                   for t in range(n_x)), "subset-rotation property violated"
-        c_sub = len(ids[0])
-        lo0 = win_lo[0]
-        m0, c_step = ids[0][0], step
-    else:
-        c_sub = (txe - wwin) // cw + 1
-        if c_sub < 1:
-            raise ValueError(
-                f"phase-general band super: no widened window (width "
-                f"{wwin}) fits the {txe}-column block")
-        assert c_sub <= cfg.c_num, (c_sub, cfg.c_num)  # txe <= xdim
-        lo0 = tuple(j * cw for j in range(c_sub))
-        m0 = c_step = None
-
-    call = _build_band_super_call(
-        cfg, rows, band, K, txe, lo0, False, None, c_sub, halo,
-        dtype, cdt, walls, forcing, storage, interpret, runtime_flux=True,
-        wwin=wwin)
-
-    def substep(flags, f_ext, force, u_s, eps, axl, fx, ay, fy):
-        fb, bh, fo, flux = call(
-            flags.astype(jnp.int32),
-            f_ext.astype(cdt), force.astype(cdt), u_s.astype(cdt),
-            eps.astype(cdt), axl.astype(jnp.int32), fx.astype(cdt),
-            ay.astype(jnp.int32), fy.astype(cdt))
-        return fb, bh, fo, flux[:, 0, 0]
-
-    substep.gx = gx
-    substep.halo = halo
-    substep.width = txe
-    substep.c_sub = c_sub
-    substep.m0 = m0
-    substep.c_step = c_step
-    substep.phase_general = not uniform
-    substep.cw = cw
-    substep.wcov = W
-    return substep
-
-
-def _ghost_temporal_kernel(
-    flags, f_hbm, bot_hbm, top_hbm, bhalos, out_ref, flux_ref, fsl, rings,
-    sem,
-    *, yl, xdim, ty, pad, n_steps, band, tau, tau2, forcing, walls,
-    storage, cdt, align=8,
-):
-    """Communication-avoiding K-step kernel for one y-shard's rows.
-
-    The shard's block is extended by `pad` (>= K, a ty-multiple; ty may
-    be smaller than pad — wide grids take 8-row tiles under a 16-row pad)
-    ghost rows on each side (ppermuted from the y-neighbours ONCE per K
-    steps instead of a halo row per step).  Ghost rows evolve force-free without seam input, so
-    garbage creeps inward one row per sub-step from the block edges — it
-    never reaches the owned rows because pad >= K (the classic overlapped
-    ghost-trapezoid scheme).  Runtime flags make the program SPMD-uniform
-    across shards (and let the force band span shard boundaries, so a
-    shard may hold fewer than `band` rows — e.g. the reference's own
-    ydim=192 under (2, 1) y-sharding):
-
-      flags[0] (inject)    this shard's block straddles the band/bulk
-          boundary (y0 <= band < y0+yl): rows below global `band` evolve
-          as garbage here (the band super-kernel computes them properly)
-          and the seam f1 of global row band-1 is INJECTED from bhalos[s]
-          at the tile boundary flags[2] each sub-step, sealing the bulk
-          rows above from the garbage below.
-      flags[1] (is_top)    the physical top wall lies at block row
-          pad+yl-1: the wall fixup applies at tile (pad+yl)/ty - 1 only
-          on this shard; above it the ghost rows are ring-wrapped garbage.
-      flags[2] (j_seam)    the tile index whose cy=+1 prev-row pull is
-          replaced by the injected seam: (pad + clip(band-y0, 0, yl))
-          // ty.  Doubles as the first flux-counted tile: the tiles
-          below it are band rows whose flux the band kernel integrates
-          (with the force correction).
-      flags[3] (flux_lane)  LOCAL lane of the reference's flux column
-          x = XDIM-5 (ImmersedBoundary.cu:259-264) within this block's
-          width — runtime because an x-sharded block holds a different
-          window of the global lanes per shard.
-      flags[4] (flux_owned)  1 iff the flux column lies in this shard's
-          OWNED lanes; other shards contribute zero to the psum.
-
-      A shard entirely below the band (y0+yl <= band) has inject=0 and
-      j_seam=(pad+yl)/ty: all its owned rows are garbage here (no flux
-      counted), replaced by the band kernel's output outside.  A shard entirely
-      above (y0 >= band+pad — the y0-band gap is a multiple of pad by
-      the yl/band alignment requirements) sees only valid bulk ghosts.
-
-    Pipeline structure is identical to _temporal_kernel; the only other
-    change is the tiled DMA source: the first pad/ty tiles read the
-    bottom ghost, the last pad/ty the top ghost, interior tiles the
-    shard's own rows (ty may be smaller than the fixed 16-row pad when
-    VMEM demands it — wide grids at K=8).
-
-    MIRROR: the pipeline (assemble/rings/DMA/flux) is deliberately kept
-    as a separate copy of _temporal_kernel rather than one parameterized
-    kernel — the single-chip path's bit-identical-to-single-step claim is
-    load-bearing (tests + bench), and threading runtime flags through it
-    would perturb proven codegen for zero benefit there.  Any fix to the
-    pipeline in either kernel MUST be applied to both
-    (tests/test_kernel_mirror.py CI-checks the contract).  Two known
-    deliberate divergences: (1) _temporal_kernel's colsum reduces a
-    static 128-lane block (its flux_lane is a Python int); here the lane
-    is a runtime flag, so the mask sweeps the full width — bit-identical
-    output either way (summing a one-hot-masked plane is exact in any
-    order).  (2) _temporal_kernel carries an rdt (ring dtype) parameter
-    — currently always cdt after a measured negative result (bf16 rings:
-    +4% for 16x the noise; see make_temporal_bulk_substep) — which this
-    kernel never gained.
-    """
-    i = pl.program_id(0)
-    K = n_steps
-    n_ghost = pad // ty              # ghost tiles per side
-    n_tiles = (yl + 2 * pad) // ty
-    t_wall = (pad + yl) // ty - 1    # tile containing the top wall row
-    do_inject = flags[0] == 1
-    is_top_shard = flags[1] == 1
-    j_seam = flags[2]                # tile whose cy=+1 prev is the seam;
-    jlo_flux = j_seam                # == first owned non-band tile
-    flux_lane = flags[3]             # local lane of the flux column
-    flux_owned = flags[4] == 1
-
-    colmask = (jax.lax.broadcasted_iota(jnp.int32, (1, xdim), 1)
-               == flux_lane).astype(cdt)
-    onehot = ((jax.lax.broadcasted_iota(jnp.int32, (8, 128), 0)
-               + jax.lax.broadcasted_iota(jnp.int32, (8, 128), 1))
-              == 0).astype(jnp.float32)
-
-    def colsum(plane):
-        return jnp.sum(plane * colmask, axis=1, keepdims=True)  # (r, 1)
-
-    def _dma(t, op):
-        @pl.when(t < n_ghost)
-        def _():
-            getattr(pltpu.make_async_copy(
-                bot_hbm.at[:, pl.ds(pl.multiple_of(t * ty, align), ty), :],
-                fsl.at[t % 2], sem.at[t % 2]), op)()
-
-        @pl.when(jnp.logical_and(t >= n_ghost, t < n_tiles - n_ghost))
-        def _():
-            getattr(pltpu.make_async_copy(
-                f_hbm.at[:, pl.ds(pl.multiple_of((t - n_ghost) * ty, align),
-                                  ty), :],
-                fsl.at[t % 2], sem.at[t % 2]), op)()
-
-        @pl.when(t >= n_tiles - n_ghost)
-        def _():
-            getattr(pltpu.make_async_copy(
-                top_hbm.at[:, pl.ds(pl.multiple_of(
-                    (t - (n_tiles - n_ghost)) * ty, align), ty), :],
-                fsl.at[t % 2], sem.at[t % 2]), op)()
-
-    def start_dma(t):
-        _dma(t, "start")
-
-    def wait_dma(t):
-        _dma(t, "wait")
-
-    @pl.when(i == 0)
-    def _():
-        start_dma(0)
-        flux_ref[...] = jnp.zeros_like(flux_ref)
-
-    @pl.when(i + 1 <= n_tiles - 1)
-    def _():
-        start_dma(i + 1)
-
-    if walls.top == "slip":       # specular: 4<-2, 8<-5, 7<-6
-        top_pairs = ((4, 2), (8, 5), (7, 6))
-    elif walls.top == "noslip":   # bounce-back: 4<-2, 7<-5, 8<-6
-        top_pairs = ((4, 2), (7, 5), (8, 6))
-    else:
-        top_pairs = ()
-
-    def assemble(s, j):
-        """Streamed tile j of sub-step s+1 from rings[s]: seam injection
-        at j == j_seam (owner), masked top-wall fixup at j == t_wall (top
-        shard).  Block-edge tiles pull stale ring garbage — by the pad
-        budget it stays inside the ghost rows."""
-        rp = (j + 2) % 3
-        rc = j % 3
-        rn = (j + 1) % 3
-        inject = jnp.logical_and(do_inject, j == j_seam)
-        planes = [None] * 9
-        for d in range(9):
-            cx, cy = CX[d], CY[d]
-            if cy == 0:
-                rows = rings[s, rc, d]
-            elif cy == 1:
-                prev = rings[s, rp, d, ty - 1:ty, :]
-                prev = jnp.where(inject, bhalos[s, d, 0:1, :].astype(cdt),
-                                 prev)
-                rows = jnp.concatenate(
-                    [prev, rings[s, rc, d, 0:ty - 1, :]], axis=0)
-            else:
-                nxt = rings[s, rn, d, 0:1, :]
-                rows = jnp.concatenate(
-                    [rings[s, rc, d, 1:ty, :], nxt], axis=0)
-            if cx != 0:
-                rows = jnp.roll(rows, cx, axis=-1)
-            planes[d] = rows
-        at_wall = jnp.logical_and(is_top_shard, j == t_wall)
-        for dst, src in top_pairs:
-            fixed = rings[s, rc, src, ty - 1:ty, :]
-            planes[dst] = jnp.concatenate(
-                [planes[dst][0:ty - 1, :],
-                 jnp.where(at_wall, fixed, planes[dst][ty - 1:ty, :])],
-                axis=0)
-        return planes
-
-    def flux_gate(j, total):
-        # select, not multiply: excluded (ghost/band) tiles hold garbage
-        # that can be NaN, and NaN * 0 == NaN
-        keep = jnp.logical_and(
-            flux_owned,
-            jnp.logical_and(j >= jlo_flux, j < n_tiles - n_ghost))
-        return jnp.where(keep, total.astype(jnp.float32), 0.0)
-
-    def add_flux(s, j, rho, mom_x):
-        ux_col = colsum(mom_x) / colsum(rho)
-        flux_ref[s] = flux_ref[s] + flux_gate(j, jnp.sum(ux_col)) * onehot
-
-    # --- stage 0: collide sub-step 1 of tile i ---------------------------
-    @pl.when(i <= n_tiles - 1)
-    def _():
-        wait_dma(i)
-        f = [fsl[i % 2, d].astype(cdt) for d in range(9)]
-        f1, _, _ = _collide_tile(f, None, None, tau=tau, tau2=tau2,
-                                 forcing=forcing, storage=storage)
-        for d in range(9):
-            rings[0, i % 3, d] = f1[d]
-
-    # --- stages 1..K-1: stream sub-step s, collide sub-step s+1 ----------
-    for s in range(1, K):
-        @pl.when(jnp.logical_and(i - s >= 0, i - s <= n_tiles - 1))
-        def _(s=s):
-            j = i - s
-            g = assemble(s - 1, j)
-            f1, rho, mom_x = _collide_tile(g, None, None, tau=tau,
-                                           tau2=tau2, forcing=forcing,
-                                           storage=storage)
-            add_flux(s - 1, j, rho, mom_x)
-            for d in range(9):
-                rings[s, j % 3, d] = f1[d]
-
-    # --- stage K: stream sub-step K -> output + its flux partial ---------
-    @pl.when(i - K >= 0)
-    def _():
-        k = i - K
-        planes = assemble(K - 1, k)
-        fsum_col = colsum(planes[0])
-        momx_col = None
-        for d in range(9):
-            out_ref[d] = planes[d].astype(out_ref.dtype)
-            if d > 0:
-                fsum_col = fsum_col + colsum(planes[d])
-            if CX[d] == 1:
-                c = colsum(planes[d])
-                momx_col = c if momx_col is None else momx_col + c
-            elif CX[d] == -1:
-                momx_col = momx_col - colsum(planes[d])
-        rho_col = 1.0 + fsum_col if storage == "deviatoric" else fsum_col
-        flux_ref[K - 1] = flux_ref[K - 1] + flux_gate(
-            k, jnp.sum(momx_col / rho_col)) * onehot
-
-
-def make_ghost_temporal_substep(cfg, yl: int, n_steps: int,
-                                walls: WallSpec = REFERENCE_WALLS,
-                                dtype=jnp.float32,
-                                forcing: str = "trt_split",
-                                storage: str = "raw",
-                                interpret: bool | None = None,
-                                width: int | None = None,
-                                tile_y: int | None = None):
-    """Build the communication-avoiding K-step bulk update for one shard
-    (parallel/sharded.ShardedTemporalSim).
-
-    Call signature:
-        substep(flags, f_loc, bot_ghost, top_ghost, bhalos)
-            -> (f_block_new [9, yl + 2*pad, W], flux [K])
-
-    flags = int32 [inject, is_top, j_seam, flux_lane,
-    flux_owned] (see the kernel docstring); bot/top_ghost are [9, pad, W]
-    row blocks ppermuted from the y-neighbours (pad == 16); bhalos is the
-    band leg's per-sub-step seam output (used only when inject).  The
-    caller slices rows [pad, pad+yl) of the output — the ghost rows are
-    the consumed trapezoid.  Flux covers this shard's OWNED force-free
-    rows only (the band tiles are skipped; the band kernel integrates
-    those with the force correction).
-
-    The force band may span shard boundaries (yl < band is legal): shards
-    below the band/bulk seam produce garbage band rows that the caller
-    replaces with the band kernel's output.
-
-    width: the block's lane count W.  The default (cfg.xdim) is the
-    unsharded-x case, where the kernel's periodic lane roll is globally
-    exact.  An x-sharded caller passes W = xl + 2*xpad with xpad >= 128
-    ghost columns ppermuted from the x-neighbours: the roll then wraps
-    the LOCAL extended block, whose edge-column garbage creeps inward one
-    lane per sub-step and dies inside the x-pad (the same overlapped
-    trapezoid as the y-ghosts, turned sideways).
-    """
-    if walls.left != "periodic":
-        raise NotImplementedError("pallas backend requires periodic x walls")
-    if walls.top not in ("slip", "noslip"):
-        raise NotImplementedError(
-            "ghost temporal kernel supports top=slip|noslip")
-    xdim = int(width) if width is not None else cfg.xdim
-    band = cfg.force_band
-    K = int(n_steps)
-    pad = 16  # fixed ghost budget (and the ppermuted row-block height)
-    if not 1 <= K <= pad:
-        raise ValueError(f"K={K} must be in [1, {pad}] (ghost pad budget)")
-    dtype = jnp.dtype(dtype)
-    cdt = jnp.dtype(jnp.float32) if dtype.itemsize < 4 else dtype
-    align = 16 if dtype.itemsize == 2 else 8
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
-    def _footprint(t):
-        return (
-            (3 * K) * 9 * t * xdim * cdt.itemsize      # f1 rings
-            + (2 + 2) * 9 * t * xdim * dtype.itemsize  # in slots + out bufs
-            + K * 9 * 8 * xdim * cdt.itemsize          # bhalos
-            + 8 * t * xdim * cdt.itemsize              # working planes
-        )
-
-    # Tile choice: prefer pad-sized (16-row) tiles; fall back to 8-row
-    # tiles when the 3K f1 rings would blow VMEM at wide grids (this is
-    # what lets K=8 run at XDIM=8192 — BASELINE config-5).
-    ty = None
-    for cand in ((int(tile_y),) if tile_y else (16, 8)):
-        if yl % cand or band % cand or pad % cand or cand % align:
-            continue
-        if interpret or _footprint(cand) <= (100 << 20):
-            ty = cand
-            break
-    if ty is None:
-        raise ValueError(
-            f"ghost temporal kernel VMEM footprint "
-            f"{_footprint(8) >> 20} MB exceeds the ~100 MB budget "
-            f"(K={K}, XDIM={xdim}) — or yl={yl}/band={band} are not "
-            f"8-row-tileable; lower K or use the per-step sharded path")
-    rows_ext = yl + 2 * pad
-    n_tiles = rows_ext // ty
-
-    kernel = functools.partial(
-        _ghost_temporal_kernel,
-        yl=yl, xdim=xdim, ty=ty, pad=pad, n_steps=K, band=band,
-        tau=float(cfg.tau), tau2=float(cfg.tau2), forcing=forcing,
-        walls=walls, storage=storage, cdt=cdt, align=align,
-    )
-    vmem_limit = min(_footprint(ty) + (8 << 20), 100 << 20)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(n_tiles + K,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),      # f_loc
-            pl.BlockSpec(memory_space=pl.ANY),      # bot ghost
-            pl.BlockSpec(memory_space=pl.ANY),      # top ghost
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # bhalos
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (9, ty, xdim),
-                lambda i, flags: (0, jnp.maximum(i - K, 0), 0),
-                memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, 8, 128), lambda i, flags: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, 9, ty, xdim), dtype),       # input slots
-            pltpu.VMEM((K, 3, 9, ty, xdim), cdt),      # f1 ring per sub-step
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-    call = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((9, rows_ext, xdim), dtype),
-            jax.ShapeDtypeStruct((K, 8, 128), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=vmem_limit),
-        cost_estimate=pl.CostEstimate(
-            flops=int(rows_ext * xdim * 200 * K),
-            bytes_accessed=int(18 * rows_ext * xdim * dtype.itemsize),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )
-
-    def substep(flags, f_loc, bot_ghost, top_ghost, bhalos):
-        f_new, fluxout = call(
-            flags.astype(jnp.int32), f_loc.astype(dtype),
-            bot_ghost.astype(dtype), top_ghost.astype(dtype),
-            bhalos.astype(cdt))
-        return f_new, fluxout[:, 0, 0]
-
-    substep.pad = pad
-    substep.ty = ty
-    return substep
-
-
-def make_sharded_fused_substep(cfg, yl: int, walls: WallSpec = REFERENCE_WALLS,
-                               dtype=jnp.float32, forcing: str = "trt_split",
-                               storage: str = "raw",
-                               interpret: bool | None = None,
-                               tile_y: int | None = None,
-                               xl: int | None = None,
-                               expose_f1_row: int | None = None,
-                               emit_moments: bool = False):
-    """Per-shard fused substep for a sharded domain (parallel/sharded).
-
-    expose_f1_row: if set, the call returns a second output [9, 8, xl]
-    whose row 0 holds the post-collision f1 of that LOCAL row — the
-    temporal-blocking band leg exposes its row band-1 as the bulk
-    kernel's seam halo, removing the separate seam collide.
-
-    emit_moments: append (q [3, band, xl], fluxcol [2, yl, 128]) outputs
-    (see make_fused_substep).  Only valid for y0 = 0 blocks that contain
-    the whole force band (the temporal band leg): the q rows are the
-    LOCAL rows [0, band).
-
-    The local block is [9, yl, xl] (xl defaults to the full width); the
-    force array holds the GLOBAL band rows x the shard's xl columns
-    [2, band, xl].  Call signature:
-
-        substep(flags, f_loc, force_band, bhalo_f1, thalo_f1) -> f_new_loc
-
-    flags = int32 [y0_rows, is_bottom, is_top]; bhalo/thalo are [9, 8, xl]
-    whose row 0 holds the f1 of the neighbour shard's adjacent row (the
-    caller computes those two rows' collisions and ring-exchanges them
-    with jax.lax.ppermute).  Walls apply only on the flagged edge shards.
-
-    With xl < XDIM the kernel's periodic lane rolls wrap the LOCAL block,
-    which is wrong at the two edge columns; the caller patches those two
-    output columns from the x-neighbours' f1 columns (ShardedPallasSim.
-    _patch_x_seams) — pure data movement, so the fix is exact.
-    """
-    if walls.left != "periodic":
-        raise NotImplementedError("pallas backend requires periodic x walls")
-    xdim = int(xl) if xl is not None else cfg.xdim
-    dtype = jnp.dtype(dtype)
-    cdt = jnp.dtype(jnp.float32) if dtype.itemsize < 4 else dtype
-    align = 16 if dtype.itemsize == 2 else 8
     if dtype.itemsize == 2 and storage != "deviatoric":
-        # same guard as make_fused_substep: raw bf16 cannot represent the
-        # near-w_i distributions usefully
         raise ValueError("bf16 storage requires deviatoric mode")
-    ty = tile_y or _pick_tile(yl, xdim, dtype.itemsize, True)
-    ty = min(ty, yl)
-    if ty % align:
-        # align is the pl.multiple_of hint handed to Mosaic for the tile
-        # row offsets; an 8-row tile under bf16's (16, 128) packed tiling
-        # would assert a false 16-row alignment on odd tiles
-        raise ValueError(
-            f"tile {ty} is not a multiple of the {align}-row alignment "
-            f"({dtype} packed tiling); pick yl/tile_y accordingly")
-    if yl % ty:
-        raise ValueError(f"local rows {yl} not divisible by tile {ty}")
-    band = cfg.force_band
-    if band % ty:
-        raise ValueError(f"force band {band} not divisible by tile {ty}")
-    n_tiles = yl // ty
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if not interpret and xdim % 128:
-        raise ValueError(
-            f"pallas backend requires local width % 128 == 0 on TPU "
-            f"(got {xdim})")
-
-    band_tiles = band // ty
-    kernel = functools.partial(
-        _pipelined_kernel,
-        ydim=yl, xdim=xdim, ty=ty, band_tiles=band_tiles,
-        tau=float(cfg.tau), tau2=float(cfg.tau2), forcing=forcing,
-        walls=walls, storage=storage, cdt=cdt, align=align,
-        sharded=True, band=band, expose_row=expose_f1_row,
-        emit_moments=emit_moments,
-        flux_lane=int(cfg.flux_x) if emit_moments else None,
-    )
-    out_specs = pl.BlockSpec(
-        (9, ty, xdim), lambda i, *_: (0, jnp.maximum(i - 1, 0), 0),
-        memory_space=pltpu.VMEM)
-    out_shape = jax.ShapeDtypeStruct((9, yl, xdim), dtype)
-    if expose_f1_row is not None or emit_moments:
-        out_specs = [out_specs]
-        out_shape = [out_shape]
-    if expose_f1_row is not None:
-        if not 0 <= expose_f1_row < yl:
-            raise ValueError("expose_f1_row outside the local block")
-        out_specs.append(pl.BlockSpec((9, 8, xdim), lambda i, *_: (0, 0, 0),
-                                      memory_space=pltpu.VMEM))
-        out_shape.append(jax.ShapeDtypeStruct((9, 8, xdim), cdt))
+    cdt = jnp.dtype(jnp.float32) if dtype.itemsize < 4 else dtype
+    ydim, xdim, band = cfg.ydim, cfg.xdim, cfg.force_band
+    by, bx = block
+    collide = functools.partial(_collide, tau=float(cfg.tau),
+                                tau2=float(cfg.tau2), forcing=forcing,
+                                storage=storage)
+    kernel = functools.partial(_kernel, ydim=ydim, xdim=xdim, band=band,
+                               by=by, bx=bx, cdt=cdt, walls=walls,
+                               storage=storage, collide=collide)
+    out_shape = [jax.ShapeDtypeStruct((9 * ydim * xdim,), dtype)]
     if emit_moments:
-        if yl < band:
-            raise ValueError("emit_moments needs the whole band in-block")
-        out_specs.append(pl.BlockSpec(
-            (3, ty, xdim),
-            lambda i, *_: (0, jnp.clip(i - 1, 0, band_tiles - 1), 0),
-            memory_space=pltpu.VMEM))
-        out_shape.append(jax.ShapeDtypeStruct((3, band, xdim), cdt))
-        out_specs.append(pl.BlockSpec(
-            (2, ty, 128), lambda i, *_: (0, jnp.maximum(i - 1, 0), 0),
-            memory_space=pltpu.VMEM))
-        out_shape.append(jax.ShapeDtypeStruct((2, yl, 128), cdt))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(n_tiles + 1,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),    # f_loc
-            pl.BlockSpec(memory_space=pl.ANY),    # force band (global)
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # bhalo f1
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # thalo f1
-        ],
-        out_specs=out_specs,
-        scratch_shapes=[
-            pltpu.VMEM((2, 9, ty, xdim), dtype),
-            pltpu.VMEM((2, 2, ty, xdim), cdt),
-            pltpu.VMEM((3, 9, ty, xdim), cdt),
-            pltpu.SemaphoreType.DMA((2, 2)),
-        ],
-    )
+        out_shape.append(jax.ShapeDtypeStruct((3 * band * xdim,), cdt))
     call = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
         out_shape=out_shape,
-        # In-place f_loc (index 1: the flat input list includes the
-        # scalar-prefetch flags at 0).  Same safety argument as
-        # make_fused_substep: the output flush of f region j trails the
-        # last manual read of region j by a full grid step, and the
-        # caller's edge-row collides consume f_loc BEFORE this call.
-        # Same-buffer read+write streams run ~2x the two-buffer rate on
-        # this hardware (validation/bandwidth.json).
-        input_output_aliases={1: 0},
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=96 << 20),
+        grid=(pl.cdiv(ydim, by), pl.cdiv(xdim, bx)),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS,
+                                                num_stages=1),
         interpret=interpret,
+        name="iblb_fused_collide_stream",
     )
 
-    def substep(flags, f_loc, force_band, bhalo, thalo):
-        return call(flags.astype(jnp.int32), f_loc.astype(dtype),
-                    force_band.astype(cdt), bhalo.astype(cdt),
-                    thalo.astype(cdt))
+    def substep(f, force_band):
+        outs = call(f.astype(dtype).reshape(-1),
+                    force_band.astype(cdt).reshape(-1))
+        f_new = outs[0].reshape(9, ydim, xdim)
+        if emit_moments:
+            return f_new, outs[1].reshape(3, band, xdim)
+        return f_new
 
     return substep

@@ -26,7 +26,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -68,6 +67,33 @@ class WallSpec:
 REFERENCE_WALLS = WallSpec()
 
 
+def lattice_sum(f, coef):
+    """sum_i coef_i f_i over the leading (population) axis, written out as
+    adds and subtracts.  The D2Q9 coefficients are 0 or +-1, so the sum is
+    exact in any dtype and fuses with its neighbours; as an einsum, XLA:GPU
+    may lower it to a matrix product that runs in TF32."""
+    out = None
+    for i, ci in enumerate(coef):
+        if ci == 0:
+            continue
+        if out is None:
+            out = f[i] if ci > 0 else -f[i]
+        else:
+            out = out + f[i] if ci > 0 else out - f[i]
+    return out
+
+
+def lattice_momentum(f):
+    """sum_i c_i f_i -> [2, ...] (exact, see lattice_sum)."""
+    return jnp.stack([lattice_sum(f, C[:, 0]), lattice_sum(f, C[:, 1])])
+
+
+def lattice_cu(u):
+    """c_i . u for the nine velocities -> [9, ...] (exact, see lattice_sum)."""
+    return jnp.stack([lattice_sum(u, C[i]) if i else jnp.zeros_like(u[0])
+                      for i in range(9)])
+
+
 def moments(f, storage="raw"):
     """rho = sum_i f_i ; u = sum_i c_i f_i / rho  (LatticeBoltzmann.cu:396-405).
 
@@ -78,10 +104,7 @@ def moments(f, storage="raw"):
     rho = jnp.sum(f, axis=0)
     if storage == "deviatoric":
         rho = 1.0 + rho
-    c = jnp.asarray(C, f.dtype)
-    mom = jnp.einsum("iyx,ic->cyx", f, c,
-                 precision=jax.lax.Precision.HIGH)
-    return rho, mom / rho
+    return rho, lattice_momentum(f) / rho
 
 
 def corrected_velocity(f, force, storage="raw"):
@@ -91,10 +114,7 @@ def corrected_velocity(f, force, storage="raw"):
     rho = jnp.sum(f, axis=0)
     if storage == "deviatoric":
         rho = 1.0 + rho
-    c = jnp.asarray(C, f.dtype)
-    mom = jnp.einsum("iyx,ic->cyx", f, c,
-                 precision=jax.lax.Precision.HIGH)
-    return rho, (mom + 0.5 * force) / rho
+    return rho, (lattice_momentum(f) + 0.5 * force) / rho
 
 
 def equilibrium(rho, u, storage="raw"):
@@ -103,16 +123,28 @@ def equilibrium(rho, u, storage="raw"):
     storage="deviatoric": returns f0_i - w_i computed WITHOUT forming the
     large constant part: w_i [(rho-1) + rho (cu/cs^2 + cu^2/2cs^4
     - u^2/2cs^2)]."""
-    dtype = u.dtype
-    c = jnp.asarray(C, dtype)           # [9, 2]
-    w = jnp.asarray(W, dtype)           # [9]
-    cu = jnp.einsum("ic,cyx->iyx", c, u,
-                precision=jax.lax.Precision.HIGH)
+    even, odd = equilibrium_parts(rho, u, storage)
+    return even + odd
+
+
+def equilibrium_parts(rho, u, storage="raw", drho=None):
+    """The equilibrium's even and odd parts over (i, opposite(i)), each
+    evaluated directly: even = w_i rho (1 + cu^2/2cs^4 - u^2/2cs^2) (its
+    deviatoric form with rho-1 in place of the 1), odd = w_i rho cu/cs^2.
+    Forming them as (f0_i +- f0_opp)/2 instead would cancel the O(u) odd
+    term out of the much smaller even part in f32.  drho = sum_i (f_i - w_i)
+    gives rho-1 exactly under deviatoric storage; forming it as rho - 1
+    from the rounded rho would cost the deviation the bits that deviatoric
+    storage exists to keep."""
+    w = jnp.asarray(W, u.dtype)[:, None, None]
+    cu = lattice_cu(u)
     u2 = jnp.sum(u * u, axis=0)
-    poly = cu / CS2 + cu * cu / (2.0 * CS4) - u2[None] / (2.0 * CS2)
+    even_poly = cu * cu / (2.0 * CS4) - u2[None] / (2.0 * CS2)
+    odd = w * (rho[None] * cu / CS2)
     if storage == "deviatoric":
-        return w[:, None, None] * ((rho - 1.0)[None] + rho[None] * poly)
-    return rho[None] * w[:, None, None] * (1.0 + poly)
+        drho = rho - 1.0 if drho is None else drho
+        return w * (drho[None] + rho[None] * even_poly), odd
+    return w * (rho[None] * (1.0 + even_poly)), odd
 
 
 def guo_forcing(u, force, tau, tau2=None, scheme="reference"):
@@ -138,23 +170,26 @@ def guo_forcing(u, force, tau, tau2=None, scheme="reference"):
     """
     dtype = u.dtype
     c = jnp.asarray(C, dtype)
-    w = jnp.asarray(W, dtype)
-    cu = jnp.einsum("ic,cyx->iyx", c, u,
-                precision=jax.lax.Precision.HIGH)  # [9, Y, X]
-    # vec_ic = (c_ic - u_c)/cs^2 + cu_i * c_ic / cs^4
-    vec = (c[:, :, None, None] - u[None]) / CS2 + (
-        cu[:, None] * c[:, :, None, None] / CS4
-    )
-    proj = jnp.sum(vec * force[None], axis=1)  # [9, Y, X]
+    w = jnp.asarray(W, dtype)[:, None, None]
+    cu = lattice_cu(u)                  # [9, Y, X]
     if scheme == "reference":
-        return (1.0 - 1.0 / (2.0 * tau)) * w[:, None, None] * proj
+        # vec_ic = (c_ic - u_c)/cs^2 + cu_i * c_ic / cs^4
+        vec = (c[:, :, None, None] - u[None]) / CS2 + (
+            cu[:, None] * c[:, :, None, None] / CS4
+        )
+        proj = jnp.sum(vec * force[None], axis=1)  # [9, Y, X]
+        return (1.0 - 1.0 / (2.0 * tau)) * w * proj
     if scheme == "trt_split":
         if tau2 is None:
             raise ValueError("trt_split forcing needs tau2")
-        s = w[:, None, None] * proj
-        s_opp = s[jnp.asarray(OPPOSITE)]
-        s_even = 0.5 * (s + s_opp)
-        s_odd = 0.5 * (s - s_opp)
+        # The even and odd parts of w_i [(c_i-u).g/cs^2 + (c_i.u)(c_i.g)/cs^4]
+        # over (i, opposite(i)), written out: the even part is O(|u||g|),
+        # and forming it as (s_i + s_opp)/2 from two O(|g|) terms cancels
+        # about |log10 |u|| digits in f32.
+        cg = lattice_cu(force)          # c_i . g
+        ug = jnp.sum(u * force, axis=0)
+        s_even = w * (cu * cg / CS4 - ug[None] / CS2)
+        s_odd = w * cg / CS2
         return (1.0 - 1.0 / (2.0 * tau)) * s_even + (
             1.0 - 1.0 / (2.0 * tau2)
         ) * s_odd
@@ -166,19 +201,39 @@ def trt_collide(f, f0, F, tau, tau2):
 
     Even/odd decomposition against the opposite population; i=0 relaxes with
     omega+ only and gets no forcing term (:86)."""
+    f0_opp = f0[jnp.asarray(OPPOSITE)]
+    return _trt_relax(f, 0.5 * (f0 + f0_opp), 0.5 * (f0 - f0_opp), F, tau,
+                      tau2)
+
+
+def _trt_relax(f, f0_plus, f0_minus, F, tau, tau2):
+    """trt_collide given the equilibrium's even and odd parts."""
     omega_p = 1.0 / tau
     omega_m = 1.0 / tau2
-    opp = jnp.asarray(OPPOSITE)
-    f_opp = f[opp]
-    f0_opp = f0[opp]
+    f_opp = f[jnp.asarray(OPPOSITE)]
     f_plus = 0.5 * (f + f_opp)
     f_minus = 0.5 * (f - f_opp)
-    f0_plus = 0.5 * (f0 + f0_opp)
-    f0_minus = 0.5 * (f0 - f0_opp)
     f1 = f - omega_p * (f_plus - f0_plus) - omega_m * (f_minus - f0_minus) + F
-    # Rest population: plain BGK relaxation, no forcing.
-    f1_0 = f[0] - omega_p * (f[0] - f0[0])
+    # Rest population: plain BGK relaxation, no forcing (its odd part is 0).
+    f1_0 = f[0] - omega_p * (f[0] - f0_plus[0])
     return f1.at[0].set(f1_0)
+
+
+def collide(f, force, tau, tau2, forcing="reference", storage="raw"):
+    """Post-collision populations: equilibrium + Guo forcing + TRT
+    relaxation of (f, force) (LatticeBoltzmann.cu:47-134).
+
+    The (rho, u) entering the equilibrium are recomputed from (f, force) and
+    equal the reference's buffered values: rho is the previous macro output
+    and u the previous spread-corrected velocity.  The TRT relaxation is
+    affine with identical structure in raw and deviatoric form (pair
+    weights are equal, so the constant parts cancel in f_minus and shift
+    f_plus/f0_plus identically)."""
+    rho, u = corrected_velocity(f, force, storage)
+    f0_plus, f0_minus = equilibrium_parts(rho, u, storage,
+                                          drho=jnp.sum(f, axis=0))
+    F = guo_forcing(u, force, tau, tau2, scheme=forcing)
+    return _trt_relax(f, f0_plus, f0_minus, F, tau, tau2)
 
 
 def stream(f1, walls: WallSpec = REFERENCE_WALLS, rho_wall: float = RHO_0):
@@ -249,39 +304,18 @@ def stream(f1, walls: WallSpec = REFERENCE_WALLS, rho_wall: float = RHO_0):
     return out
 
 
-def collide_rows(f_rows, force_rows, tau, tau2, forcing="reference",
-                 storage="raw"):
-    """Collision only (no streaming) on a thin [9, r, X] row slab — used to
-    produce the post-collision (f1) halo rows exchanged between shards
-    (parallel/sharded) and the temporal-blocking seam wedge
-    (models/mucociliary).  Collision is cell-local, so a one-row slab
-    suffices for a halo."""
-    rho, u = corrected_velocity(f_rows, force_rows, storage)
-    f0 = equilibrium(rho, u, storage)
-    F = guo_forcing(u, force_rows, tau, tau2, scheme=forcing)
-    return trt_collide(f_rows, f0, F, tau, tau2)
-
-
 def lb_substep(f, force, tau, tau2, walls: WallSpec = REFERENCE_WALLS,
                forcing: str = "reference", storage: str = "raw"):
     """One full fluid update: equilibrium -> TRT collide -> stream.
 
     Inputs are this step's f and the *previous* step's IB force (one-step
     force lag, main.cu:852 reading spread's output of the prior iteration).
-    The (rho, u) entering the equilibrium are recomputed from (f, force) and
-    equal the reference's buffered values: rho is the previous macro output
-    and u the previous spread-corrected velocity.
     Returns (f_new, rho_new, u_new) with the *uncorrected* macro moments that
-    the reference's interpolate kernel reads (main.cu:880,900).
+    the reference's interpolate kernel reads (main.cu:880,900).  Streaming
+    and walls are weight-preserving permutations, so they act identically
+    on raw and deviatoric storage.
     """
-    rho, u = corrected_velocity(f, force, storage)
-    f0 = equilibrium(rho, u, storage)
-    F = guo_forcing(u, force, tau, tau2, scheme=forcing)
-    # The TRT relaxation is affine with identical structure in raw and
-    # deviatoric form (pair weights are equal, so the constant parts cancel
-    # in f_minus and shift f_plus/f0_plus identically); streaming and walls
-    # are weight-preserving permutations.
-    f1 = trt_collide(f, f0, F, tau, tau2)
+    f1 = collide(f, force, tau, tau2, forcing, storage)
     f_new = stream(f1, walls)
     rho_new, u_new = moments(f_new, storage)
     return f_new, rho_new, u_new

@@ -1,6 +1,4 @@
 from cuda_iblb_11_tpu.parallel.sharded import (  # noqa: F401
     ShardedMucociliarySim,
-    ShardedPallasSim,
-    ShardedTemporalSim,
     make_mesh,
 )

@@ -4,16 +4,15 @@ The reference is strictly single-GPU (cudaSetDevice + no MPI/NCCL anywhere,
 main.cu:395-396); scale-out is a new first-class capability of this
 framework: the [9, Y, X] lattice is sharded over a 2-D device mesh
 ('y', 'x'), each step exchanges a 1-cell halo of the distributions and the
-IB force field with the 4 neighbours via ring `jax.lax.ppermute` (ICI
-traffic only), and the scalar reductions (IB force gather, flux integral)
+IB force field with the 4 neighbours via ring `jax.lax.ppermute` (which
+XLA hands to NCCL on GPUs), and the scalar reductions (IB force gather, flux integral)
 ride `jax.lax.psum`.
 
 Design notes
   * x is globally periodic, so the x-halo ring is exact.  y has walls; the
     y-ring delivers wrapped junk to the outermost shards, which is harmless
     because the only rows that would read it are wall rows, overwritten by
-    the bounce-back / slip fixups (same trick as the Pallas kernel's
-    clamped halo bands).
+    the bounce-back / slip fixups.
   * The cilia kinematics are O(c_num*96) and run replicated on every shard.
   * IB interpolation gathers each Lagrangian point's 3x3 stencil from the
     shard that owns each cell (ownership-masked local gather + psum);
@@ -78,10 +77,7 @@ def _local_lb_substep(f_loc, force_loc, tau, tau2, walls, forcing,
     f_ext = _exchange_halo(_exchange_halo(f_loc, "x", 2), "y", 1)
     fo_ext = _exchange_halo(_exchange_halo(force_loc, "x", 2), "y", 1)
 
-    rho, u = ref.corrected_velocity(f_ext, fo_ext, storage)
-    f0 = ref.equilibrium(rho, u, storage)
-    F = ref.guo_forcing(u, fo_ext, tau, tau2, scheme=forcing)
-    f1 = ref.trt_collide(f_ext, f0, F, tau, tau2)
+    f1 = ref.collide(f_ext, fo_ext, tau, tau2, forcing, storage)
 
     yl = f_loc.shape[1]
     xl = f_loc.shape[2]
@@ -126,10 +122,8 @@ class ShardedMucociliarySim:
         if ib_x_edge not in ("periodic", "reference"):
             raise ValueError(f"unknown ib_x_edge {ib_x_edge!r}")
         # "reference" = the CUDA's row-aliasing/drop quirk at the periodic
-        # x edges (ops/ib.py docstring) — supported on this jnp sharded
-        # path AND the pallas subclasses (which then swap their band-matmul
-        # IB for the ownership-masked stencil forms) so strict-parity
-        # studies of the committed CUDA can run at scale at full speed.
+        # x edges (ops/ib.py docstring), so strict-parity studies of the
+        # committed CUDA can run at scale.
         self.ib_x_edge = ib_x_edge
         # _local_lb_substep only implements the reference channel's wall
         # fixups; reject anything else rather than silently simulating it
@@ -158,33 +152,20 @@ class ShardedMucociliarySim:
         self.yl = cfg.ydim // self.n_y
         self.xl = cfg.xdim // self.n_x
         self._chunk_cache = {}
-        self._local_step = self._step_local
-        # the jitted one-step shard_map is built lazily from _chunk_specs()
-        # and _local_step, AFTER a subclass ctor has swapped those in
         self._step_sharded = None
-
-    # resolved-config labels (overridden by the pallas subclasses)
-    _resolved_backend = "jnp"
-    _kernel_path = "jnp_per_step"
-    _ib_periodic_path = "stencil"
 
     def resolved_config(self) -> dict:
         """The ACTUAL execution configuration after every fallback — see
         models.mucociliary.MucociliarySim.resolved_config (same contract;
         recorded into SimLog + the runner summary)."""
         return {
-            "backend": self._resolved_backend,
+            "backend": "jnp",
             "backend_reason": None,
-            "band_leg": self._kernel_path,
             "storage": self.storage,
             "dtype": str(self.dtype),
-            "temporal": getattr(self, "temporal", 1),
-            "temporal_requested": getattr(
-                self, "temporal_requested", getattr(self, "temporal", 1)),
-            "temporal_reason": getattr(self, "temporal_reason", None),
             "forcing": self.forcing,
             "ib_path": ("stencil_quirk" if self.ib_x_edge == "reference"
-                        else self._ib_periodic_path),
+                        else "stencil"),
             "mesh": [self.n_y, self.n_x],
         }
 
@@ -258,13 +239,11 @@ class ShardedMucociliarySim:
         col_owned = (fx >= x0) & (fx < x0 + self.xl)
         xf = jnp.clip(fx - x0, 0, self.xl - 1)
         cdt = jnp.promote_types(f_new.dtype, jnp.float32)
-        cx = jnp.asarray(C[:, 0], cdt)
         col_f = f_new[:, :, xf].astype(cdt)
         rho_col = jnp.sum(col_f, axis=0)
         if self.storage == "deviatoric":
             rho_col = 1.0 + rho_col
-        mom_col = jnp.einsum("iy,i->y", col_f, cx,
-                     precision=jax.lax.Precision.HIGH)
+        mom_col = ref.lattice_sum(col_f, C[:, 0])
         ux_col = (mom_col + 0.5 * force_new[0, :, xf]) / rho_col
         contrib = jnp.where(col_owned, jnp.sum(ux_col), 0.0) / 192.0
         q_new = q + jax.lax.psum(jax.lax.psum(contrib, "x"), "y")
@@ -277,12 +256,10 @@ class ShardedMucociliarySim:
         if self._step_sharded is None:
             self._step_sharded = jax.jit(
                 jax.shard_map(
-                    self._local_step,
+                    self._step_local,
                     mesh=self.mesh,
                     in_specs=self._chunk_specs(),
                     out_specs=self._chunk_specs(),
-                    # pallas_call outputs carry no varying-mesh-axes
-                    # metadata
                     check_vma=False,
                 ),
                 donate_argnums=(0, 1),
@@ -296,7 +273,7 @@ class ShardedMucociliarySim:
 
     def _force_shape(self, force):
         """Adapt a checkpointed force field to this backend's layout
-        (full [2, Y, X] here; band-only in the pallas subclass)."""
+        (full [2, Y, X]; the single-device layout is band-only)."""
         from cuda_iblb_11_tpu.ops import ib_band
 
         if force.shape[1] < self.cfg.ydim:
@@ -338,7 +315,7 @@ class ShardedMucociliarySim:
         fori_loop — removes per-step dispatch and lets XLA overlap the
         halo collectives with compute across iterations."""
 
-        local_step = self._local_step
+        local_step = self._step_local
 
         def local_chunk(f, force, lasts, q, it):
             def body(_, carry):
@@ -368,14 +345,10 @@ class ShardedMucociliarySim:
     _MAX_SCAN = 512
 
     def run_chunk(self, state: FlowState, n_steps: int) -> FlowState:
-        """n_steps iterations in compiled sharded loops (split at
-        _MAX_SCAN; splits are aligned to the temporal super-step K so
-        the fast path is preserved)."""
-        K = getattr(self, "temporal", 1)
+        """n_steps iterations in compiled sharded loops of at most
+        _MAX_SCAN steps each."""
         while n_steps > 0:
             k = min(n_steps, self._MAX_SCAN)
-            if K > 1 and k >= K:
-                k -= k % K
             state = self._run_chunk_once(state, k)
             n_steps -= k
         return state
@@ -395,11 +368,6 @@ class ShardedMucociliarySim:
         return state
 
 
-def _collide_rows(f_rows, force_rows, tau, tau2, forcing, storage):
-    """Alias of ops.reference.collide_rows (kept for callers/tests)."""
-    return ref.collide_rows(f_rows, force_rows, tau, tau2, forcing, storage)
-
-
 def _stencil_interp_block(f_block, s, u_s, cfg, y0, rows, x0, xl, storage,
                           mode="reference_alias"):
     """PARTIAL stencil-form IB interpolation over a local block
@@ -407,9 +375,7 @@ def _stencil_interp_block(f_block, s, u_s, cfg, y0, rows, x0, xl, storage,
     [x0, x0+xl): the stencil (`mode`: "periodic" or the strict-parity
     "reference_alias" quirk, ops/ib.py) is evaluated globally, cells not
     owned by this block contribute zero, and the caller psums the result
-    over exactly the mesh axes that partition ownership (both for
-    per-shard blocks; 'x' only for the y-replicated band block of the
-    temporal tiled leg).  Matches ops/ib.interpolate_from_f up to the
+    over the mesh axes that partition ownership.  Matches ops/ib.interpolate_from_f up to the
     psum re-association.  The gather is promoted to >= f32 (bf16 storage
     must not quantize the stiff IB feedback — same invariant as
     ops/ib_band.band_moments)."""
@@ -424,920 +390,7 @@ def _stencil_interp_block(f_block, s, u_s, cfg, y0, rows, x0, xl, storage,
     rho_c = jnp.sum(f_cells, axis=0)
     if storage == "deviatoric":
         rho_c = 1.0 + rho_c
-    c = jnp.asarray(C, cdt)
-    mom = jnp.einsum("inm,ic->cnm", f_cells, c,
-                     precision=jax.lax.Precision.HIGH)
-    u_c = mom / rho_c[None]
+    u_c = ref.lattice_momentum(f_cells) / rho_c[None]
     diff = u_s.astype(cdt).T[:, :, None] - u_c         # [2, Ns, 9cells]
     wm = jnp.where(own, w, 0.0).astype(cdt)
     return jnp.sum(2.0 * wm[None] * rho_c[None] * diff, axis=-1).T
-
-
-def _quirk_spread_block(f_s, s, eps, cfg, x0, xl, band):
-    """Strict-parity ('reference_drop') spreading into the shard's own
-    force columns [2, band, xl]: the drop mode discards the periodic
-    x-images exactly like the reference's raw-coordinate test
-    (ImmersedBoundary.cu:178-231); rows stay inside the band (points
-    live there — same contract as the single-chip quirk path's
-    ib.spread(..., band)).  x-ownership masking makes the per-shard
-    scatter exact without any collective (every cell is owned by
-    exactly one x-shard; the band rows are y-replicated)."""
-    xw, yc, w, valid = ib._stencil(s, cfg.xdim, band, "reference_drop")
-    own = (xw >= x0) & (xw < x0 + xl)
-    ws = jnp.where(valid & own, w, 0.0) * eps[:, None].astype(w.dtype)
-    yloc = jnp.clip(yc, 0, band - 1)
-    xloc = jnp.clip(xw - x0, 0, xl - 1)
-    flat = (yloc * xl + xloc).reshape(-1)
-    vals = (f_s.T[:, :, None] * ws[None]).reshape(2, -1)
-    force = jnp.zeros((2, band * xl), f_s.dtype)
-    return force.at[:, flat].add(vals).reshape(2, band, xl)
-
-
-class _ShardedPallasChunkMixin:
-    def _chunk_specs(self):
-        # force holds global band rows x the shard's own columns
-        return (P(None, "y", "x"), P(None, None, "x"), P(), P(), P())
-
-
-class ShardedPallasSim(_ShardedPallasChunkMixin, ShardedMucociliarySim):
-    """2-D (y, x)-sharded simulation whose per-shard fluid update is the
-    fused Pallas collide+stream kernel (ops/pallas_step.
-    make_sharded_fused_substep) — the BASELINE config-5 scale-out path.
-
-    Per step and shard:
-      1. the four edge lines' post-collision (f1) values are computed in
-         XLA (collision is cell-local, ops/reference.collide_rows) and
-         ring-exchanged with the four neighbours (`jax.lax.ppermute` over
-         ICI); the N/S row payloads are extended with the already-received
-         E/W corner cells (two-phase halo exchange), covering diagonal
-         pulls;
-      2. the kernel streams the local block, pulling the halo f1 rows at
-         the y seams; its periodic lane rolls wrap the LOCAL block, which
-         is wrong at the two edge columns when n_x > 1, so those two
-         output columns are re-pulled in XLA from the exchanged f1
-         columns (_patch_x_seams — pure data movement, exact);
-      3. IB coupling scales with the mesh: each shard reduces partial
-         band-moment delta integrals over its own sub-block (contributions
-         are EXACTLY zero above the force band) and a psum replicates the
-         Lagrangian forces F_s; spreading fills only the shard's own force
-         columns [2, band, xl]; the flux integral is a masked column sum
-         + psum (ImmersedBoundary.cu:259-264 semantics).
-    """
-
-    _resolved_backend = "pallas"
-    _kernel_path = "sharded_per_step"
-    _ib_periodic_path = "band_matmul"
-
-    def __init__(self, cfg: SimConfig, mesh: Mesh,
-                 walls: ref.WallSpec = ref.REFERENCE_WALLS,
-                 forcing: str = "trt_split", pattern: str = "no_mucus",
-                 dtype=None, interpret=None, *,
-                 ib_x_edge: str = "periodic"):
-        super().__init__(cfg, mesh, walls, forcing, pattern, dtype,
-                         ib_x_edge=ib_x_edge)
-        from cuda_iblb_11_tpu.ops.pallas_step import (
-            make_sharded_fused_substep,
-        )
-
-        self._local_substep = make_sharded_fused_substep(
-            cfg, self.yl, walls, self.dtype, forcing=forcing,
-            storage=self.storage, interpret=interpret, xl=self.xl)
-        # step() builds the jitted shard_map lazily from these:
-        self._local_step = self._step_local_pallas
-        self._chunk_cache = {}
-
-    def init_state(self) -> FlowState:
-        st = initial_state(self.cfg, self.dtype)  # band force, f by storage
-        return self.place_state(st)
-
-    def _force_sharding(self):
-        return NamedSharding(self.mesh, P(None, None, "x"))
-
-    def _force_shape(self, force):
-        band = self.cfg.force_band
-        return force[:, :band, :]
-
-    # -- seam helpers -------------------------------------------------------
-
-    def _band_force_rows(self, force_loc, g0, count, lane=None):
-        """Force values for global rows [g0, g0+count) (zero above the
-        band) at the shard's local columns (or one column `lane`)."""
-        band = self.cfg.force_band
-        idx = g0 + jnp.arange(count, dtype=jnp.int32)
-        src = (force_loc if lane is None
-               else jax.lax.dynamic_slice_in_dim(force_loc, lane, 1, axis=2))
-        rows = src[:, jnp.clip(idx, 0, band - 1), :]
-        return jnp.where((idx < band)[None, :, None], rows,
-                         jnp.zeros_like(rows))
-
-    def _patch_x_seams(self, f_new, w_ext, e_ext, is_bottom, is_top,
-                       yl=None):
-        """Re-pull the two edge output columns from the x-neighbours' f1
-        columns (extended with the diagonal corners).  Rows owned by a
-        wall fixup keep the kernel's value.  yl overrides the block's row
-        count (the temporal band leg patches a band+pad block)."""
-        yl = self.yl if yl is None else yl
-        xl = f_new.shape[2]
-        rows = jnp.arange(yl)
-        walls = self.walls
-        for d, ext, lane in ((1, w_ext, 0), (5, w_ext, 0), (8, w_ext, 0),
-                             (3, e_ext, xl - 1), (6, e_ext, xl - 1),
-                             (7, e_ext, xl - 1)):
-            cy = int(C[d, 1])
-            col = ext[d, 1 - cy:1 - cy + yl, 0]
-            if d in (5, 6) and walls.bottom == "noslip":
-                protect = is_bottom & (rows == 0)
-            elif d in (7, 8) and walls.top in ("slip", "noslip"):
-                protect = is_top & (rows == yl - 1)
-            else:
-                protect = jnp.zeros((yl,), bool)
-            f_new = f_new.at[d, :, lane].set(
-                jnp.where(protect, f_new[d, :, lane],
-                          col.astype(f_new.dtype)))
-        return f_new
-
-    # -- the per-shard fluid + IB + flux step --------------------------------
-
-    def _pallas_fluid(self, f_loc, force_loc, q, u_s, eps, anchored,
-                      s_pts=None):
-        """Fluid + IB + flux for one step given this step's boundary data —
-        the scan body of the chunked path (cilia batched outside).  s_pts
-        (raw Lagrangian positions) is consumed only by the strict-parity
-        quirk IB (ib_x_edge="reference")."""
-        cfg = self.cfg
-        band = cfg.force_band
-        yl, xl = self.yl, self.xl
-        n_y, n_x = self.n_y, self.n_x
-        iy = jax.lax.axis_index("y")
-        ix = jax.lax.axis_index("x")
-        y0 = iy * yl
-        x0 = ix * xl
-        aux = self.dtype if self.dtype.itemsize >= 4 else jnp.float32
-        tau, tau2 = cfg.tau, cfg.tau2
-
-        def collide(rows_f, rows_force):
-            return ref.collide_rows(rows_f.astype(aux),
-                                    rows_force.astype(aux), tau, tau2,
-                                    self.forcing, self.storage)
-
-        # --- edge-line f1 + two-phase halo exchange -----------------------
-        f1_bot = collide(f_loc[:, 0:1, :],
-                         self._band_force_rows(force_loc, y0, 1))
-        f1_top = collide(f_loc[:, yl - 1:yl, :],
-                         self._band_force_rows(force_loc, y0 + yl - 1, 1))
-        if n_x > 1:
-            fc_col = self._band_force_rows(force_loc, y0, yl, lane=0)
-            f1_w = collide(f_loc[:, :, 0:1], fc_col)
-            fc_col_e = self._band_force_rows(force_loc, y0, yl, lane=xl - 1)
-            f1_e = collide(f_loc[:, :, xl - 1:xl], fc_col_e)
-            fwd_x = [(k, (k + 1) % n_x) for k in range(n_x)]
-            bwd_x = [(k, (k - 1) % n_x) for k in range(n_x)]
-            w_halo = jax.lax.ppermute(f1_e, "x", fwd_x)  # from shard ix-1
-            e_halo = jax.lax.ppermute(f1_w, "x", bwd_x)  # from shard ix+1
-            ext_top = jnp.concatenate(
-                [w_halo[:, yl - 1:yl, :], f1_top, e_halo[:, yl - 1:yl, :]],
-                axis=2)
-            ext_bot = jnp.concatenate(
-                [w_halo[:, 0:1, :], f1_bot, e_halo[:, 0:1, :]], axis=2)
-        else:
-            ext_top, ext_bot = f1_top, f1_bot
-        fwd_y = [(k, (k + 1) % n_y) for k in range(n_y)]
-        bwd_y = [(k, (k - 1) % n_y) for k in range(n_y)]
-        bhalo_ext = jax.lax.ppermute(ext_top, "y", fwd_y)  # row y0-1
-        thalo_ext = jax.lax.ppermute(ext_bot, "y", bwd_y)  # row y0+yl
-        if n_x > 1:
-            bhalo_c = bhalo_ext[:, :, 1:1 + xl]
-            thalo_c = thalo_ext[:, :, 1:1 + xl]
-        else:
-            bhalo_c, thalo_c = bhalo_ext, thalo_ext
-        pad = [(0, 0), (0, 7), (0, 0)]
-        flags = jnp.stack(
-            [y0, (iy == 0).astype(jnp.int32),
-             (iy == n_y - 1).astype(jnp.int32)]).astype(jnp.int32)
-        f_new = self._local_substep(flags, f_loc, force_loc,
-                                    jnp.pad(bhalo_c, pad),
-                                    jnp.pad(thalo_c, pad))
-        if n_x > 1:
-            w_ext = jnp.concatenate(
-                [bhalo_ext[:, :, 0:1], w_halo, thalo_ext[:, :, 0:1]],
-                axis=1)
-            e_ext = jnp.concatenate(
-                [bhalo_ext[:, :, xl + 1:xl + 2], e_halo,
-                 thalo_ext[:, :, xl + 1:xl + 2]], axis=1)
-            f_new = self._patch_x_seams(f_new, w_ext, e_ext,
-                                        iy == 0, iy == n_y - 1)
-
-        # --- IB: partial band-moment integrals + psum ---------------------
-        from cuda_iblb_11_tpu.ops import ib_band
-
-        if self.ib_x_edge == "reference":
-            # strict-parity quirk stencils (ownership-masked; each stencil
-            # cell is owned by exactly one shard, so the psum is exact)
-            f_s = _stencil_interp_block(
-                f_new, s_pts, u_s, cfg, y0, yl, x0, xl, self.storage)
-            f_s = jax.lax.psum(jax.lax.psum(f_s, "x"), "y")
-            force_new = _quirk_spread_block(f_s, s_pts, eps, cfg, x0, xl,
-                                            band)
-        else:
-            i_q = ib_band.interpolate_partial(
-                f_new, cfg.xdim, band, y0, x0, min(yl, band),
-                storage=self.storage, anchored=anchored)
-            i_q = jax.lax.psum(jax.lax.psum(i_q, "x"), "y")
-            f_s = ib_band.finish_interpolate(i_q, u_s.astype(i_q.dtype))
-            force_new = ib_band.spread_local(
-                f_s, eps, cfg.xdim, band, x0, xl, anchored=anchored)
-
-        # --- flux: masked local column + psum (cumulative Q) --------------
-        fx = cfg.flux_x
-        col_owned = (fx >= x0) & (fx < x0 + xl)
-        lane = jnp.clip(fx - x0, 0, xl - 1)
-        cdt = jnp.promote_types(f_new.dtype, jnp.float32)
-        col_f = f_new[:, :, lane].astype(cdt)
-        rho_col = jnp.sum(col_f, axis=0)
-        if self.storage == "deviatoric":
-            rho_col = 1.0 + rho_col
-        cxv = jnp.asarray(C[:, 0], cdt)
-        mom_col = jnp.einsum("iy,i->y", col_f, cxv,
-                     precision=jax.lax.Precision.HIGH)
-        fcol = self._band_force_rows(
-            force_new.astype(cdt), y0, yl, lane=lane)[0, :, 0]
-        ux = (mom_col + 0.5 * fcol) / rho_col
-        contrib = jnp.where(col_owned, jnp.sum(ux), 0.0)
-        q_new = q + jax.lax.psum(jax.lax.psum(contrib, "x"), "y") / 192.0
-        return f_new, force_new.astype(force_loc.dtype), q_new
-
-    def _step_local_pallas(self, f_loc, force_loc, lasts, q, it):
-        pos, vel, lasts_new = self.cilia.kinematics(it, lasts)
-        s, u_s, eps = self.cilia.place_and_mask(pos, vel)
-        anchored = self.cilia.anchored_nodes(pos)
-        f_new, force_new, q_new = self._pallas_fluid(
-            f_loc, force_loc, q, u_s, eps, anchored, s)
-        return (f_new, force_new, lasts_new.astype(lasts.dtype), q_new,
-                it + 1)
-
-    def _boundary_series(self, it, n_steps):
-        """Batched cilia boundary data for steps [it, it+n_steps): the
-        kinematics are replicated per-shard (cheap) and computed OUTSIDE
-        the fluid scan, mirroring MucociliarySim._run_scan.  Returns
-        (pos [n, ...], s, u_s, eps, anchor, frac)."""
-        cilia = self.cilia
-        its = it + jnp.arange(n_steps, dtype=jnp.int32)
-        pos = jax.vmap(cilia.positions)(its)
-        vel = jnp.where((its > 0)[:, None, None, None],
-                        jax.vmap(cilia.velocities)(its),
-                        jnp.zeros_like(pos))
-        s_all, u_s, eps = jax.vmap(cilia.place_and_mask)(pos, vel)
-        anchor, frac = jax.vmap(cilia.anchored_nodes)(pos)
-        return pos, s_all, u_s, eps, anchor, frac
-
-    def _scan_steps(self, f, force, q, xs):
-        """Scan the per-step fluid+IB body over stacked boundary data
-        xs = (s, u_s, eps, anchor, frac)."""
-        def body(carry, x):
-            fc, fo, qq = carry
-            s_k, u_k, e_k, a_k, fr_k = x
-            fc, fo, qq = self._pallas_fluid(
-                fc, fo, qq, u_k, e_k, (a_k, fr_k), s_k)
-            return (fc, fo, qq), None
-
-        (f, force, q), _ = jax.lax.scan(body, (f, force, q), xs)
-        return f, force, q
-
-    def _make_chunk(self, n_steps: int):
-        """Chunked sharded path: cilia kinematics batched OUTSIDE the scan
-        (mirroring MucociliarySim._run_scan), scan body = fused kernel +
-        halo exchange + IB + flux."""
-
-        def local_chunk(f, force, lasts, q, it):
-            pos, s_all, u_s, eps, anchor, frac = self._boundary_series(
-                it, n_steps)
-            f, force, q = self._scan_steps(
-                f, force, q, (s_all, u_s, eps, anchor, frac))
-            return (f, force, pos[-1].astype(lasts.dtype), q, it + n_steps)
-
-        return jax.jit(
-            jax.shard_map(
-                local_chunk,
-                mesh=self.mesh,
-                in_specs=self._chunk_specs(),
-                out_specs=self._chunk_specs(),
-                check_vma=False,
-            ),
-            donate_argnums=(0, 1),
-        )
-
-
-class ShardedTemporalSim(ShardedPallasSim):
-    """Communication-avoiding y-sharded simulation: K LB steps per halo
-    exchange (vs one per step), each shard's bulk advanced by ONE Pallas
-    launch per K steps (ops/pallas_step.make_ghost_temporal_substep) and
-    the IB band by the resident-band super-kernel
-    (ops/pallas_step.make_band_super_substep) on the band-owner shard.
-
-    Per super-step and shard:
-      1. `pad` (=16) boundary rows are ring-exchanged with the two
-         y-neighbours (jax.lax.ppermute over ICI) — K-fold fewer messages
-         than the per-step path; at K=16 the byte volume matches it too,
-         while smaller K trades up to 16/K x more halo bytes (the pad is
-         fixed) for the fewer, larger messages and one-launch sub-steps;
-      2. EVERY shard runs the band super-kernel SPMD-uniformly (the
-         non-owners on their own rows as dummy input, outputs masked);
-         this costs no wall-clock — the owner's band leg is the critical
-         path either way — and keeps the program free of cross-shard
-         control flow;
-      3. the ghost temporal kernel advances the shard's rows K sub-steps
-         inside one launch, with the owner's band seam injected from the
-         super-kernel's per-sub-step f1 output and the physical top wall
-         applied via a runtime flag on the top shard (the classic
-         overlapped ghost-trapezoid scheme: edge garbage creeps one row
-         per sub-step and dies inside the pad);
-      4. the owner's new band rows replace the garbage band tiles, the
-         force field and flux partials combine with jax.lax.psum.
-
-    Scale-out analogue of the temporal mode of models/mucociliary (the
-    reference, LatticeBoltzmann.cu:30-411 + ImmersedBoundary.cu:138-264,
-    has no multi-GPU path at all).  Restrictions: >= 2 shards, yl >= the
-    16-row ghost pad and 16/8-row-tileable, xl a lane multiple on TPU.
-    The force band may span
-    shard boundaries (yl < force_band + pad — e.g. the reference's own
-    ydim=192 under (2,1) slicing): the band block is then assembled by a
-    masked psum each super-step, every shard runs the band kernel on the
-    true data, and each takes its own slice of the (replicated) band
-    output.
-
-    On x-sharded meshes (n_x > 1) the band leg PREFERS the per-shard
-    resident-band super-kernel (_super_body_xsuper +
-    ops/pallas_step.make_band_super_substep_xsharded): each shard's band
-    block, force and bulk ghosts are extended by gx ghost columns
-    ppermuted ONCE per super-step, and ONE kernel launch runs all K band
-    sub-steps with ZERO collectives inside (runtime [lane, owned] flux
-    flags keep the program SPMD-uniform).  Eligibility: gx <= xl and
-    xl + 2*gx <= XDIM — BASELINE config-5 (8192^2) on a (2,2) mesh
-    qualifies (xl=4096, gx=256 at K=8); since r4 xl need NOT be a
-    c_space multiple (the phase-general widened-window layout bakes the
-    shard's runtime window phase into the point anchors —
-    ops/pallas_step.make_band_super_substep_xsharded docstring).
-
-    Otherwise — shards too narrow for the ghost reach, or the
-    whole-domain super-kernel ineligible on (n_y, 1) meshes (X too wide
-    for VMEM, c_space not lane-aligned) — the band leg falls back to the
-    TILED per-sub-step leg (_super_body_tiled): K
-    launches of the sharded fused kernel on the band+pad trapezoid block
-    with the full IB coupling per sub-step, while the bulk still advances
-    K steps per ghost-kernel launch with ghost COLUMNS ppermuted next to
-    the ghost rows (the x-trapezoid).  Same physics, exact to round-off;
-    the bulk (the overwhelming share of rows at scale) keeps the K-fold
-    HBM and message savings.
-    """
-
-    def __init__(self, cfg: SimConfig, mesh: Mesh,
-                 walls: ref.WallSpec = ref.REFERENCE_WALLS,
-                 forcing: str = "trt_split", pattern: str = "no_mucus",
-                 dtype=None, temporal: int = 8, interpret=None, *,
-                 ib_x_edge: str = "periodic"):
-        super().__init__(cfg, mesh, walls, forcing, pattern, dtype,
-                         interpret=interpret, ib_x_edge=ib_x_edge)
-        from cuda_iblb_11_tpu.ops.pallas_step import (
-            make_band_super_substep, make_ghost_temporal_substep,
-            make_sharded_fused_substep, pick_band_leg_tile,
-        )
-
-        if self.n_y * self.n_x < 2:
-            raise ValueError(
-                "single-shard meshes: use MucociliarySim(temporal=K)")
-        K = int(temporal)
-        if K < 2:
-            raise ValueError("temporal must be >= 2")
-        self.temporal = K
-        pad_s = -(-K // 8) * 8
-        self._band_pad_s = pad_s
-        if cfg.ydim < cfg.force_band + pad_s:
-            raise ValueError(
-                f"temporal blocking needs ydim >= force_band + {pad_s} "
-                f"(got ydim={cfg.ydim}, band={cfg.force_band})")
-        # When a shard holds fewer rows than the extended band (the
-        # reference's own ydim=192 under (2,1) slicing), the band block is
-        # assembled across shards by a masked psum each super-step and the
-        # band kernel's output rows are scattered back per shard.
-        self._band_gather = self.yl < cfg.force_band + pad_s
-        # x-sharded bulk: the ghost kernel runs on an x-EXTENDED block
-        # (128 ghost columns per side, ppermuted once per super-step; the
-        # kernel's local lane roll is then exact except inside the pad,
-        # where the x-trapezoid garbage dies).
-        self._xpad = 128 if self.n_x > 1 else 0
-        if self.xl < self._xpad:
-            raise ValueError(
-                f"x-sharded temporal blocking needs xl >= {self._xpad} "
-                f"(one-hop ghost-column exchange), got xl={self.xl}")
-        # rejects K > 16 and yl not 16/8-row-tileable
-        self._ghost_substep = make_ghost_temporal_substep(
-            cfg, self.yl, K, walls, self.dtype, forcing=forcing,
-            storage=self.storage, interpret=interpret,
-            width=self.xl + 2 * self._xpad)
-        self._ghost_pad = self._ghost_substep.pad
-        if self.yl < self._ghost_pad:
-            # the one-hop y-ghost exchange sends f_loc[:, yl-pad:, :] /
-            # f_loc[:, :pad, :] — a shard thinner than the pad cannot
-            # supply its neighbour's ghost block from its own rows (the
-            # slice silently shrinks and the kernel DMAs out of range)
-            raise ValueError(
-                f"sharded temporal blocking needs yl >= {self._ghost_pad} "
-                f"rows per y-shard (one-hop ghost-row exchange), got "
-                f"yl={self.yl}; use fewer y-shards or the per-step "
-                f"sharded path")
-        # Band leg: the resident-band super-kernel when eligible and the
-        # mesh is not x-sharded; otherwise the TILED per-sub-step leg (the
-        # sharded fused kernel on band+pad rows x the shard's own columns
-        # + partial-integral IB with psum('x') — the path that scales
-        # BASELINE config-5's 8192-wide band, where the super-kernel is
-        # VMEM-ineligible).
-        self._band_super = None
-        # (the super-kernel's windowed IB is periodic-only; the quirk
-        # strict-parity mode always takes the tiled per-sub-step leg)
-        if self.n_x == 1 and ib_x_edge == "periodic":
-            from cuda_iblb_11_tpu.ops.pallas_step import (
-                make_band_super_substep_tiled,
-            )
-
-            # whole-domain kernel first; the x-tiled variant when VMEM
-            # rejects it (8192-wide grids under (n_y, 1) slicing keep the
-            # full width per shard)
-            for factory, leg in (
-                    (make_band_super_substep, "band_super_whole"),
-                    (make_band_super_substep_tiled, "band_super_xtiled")):
-                try:
-                    self._band_super = factory(
-                        cfg, pad_s, K, walls, self.dtype, forcing=forcing,
-                        storage=self.storage, interpret=interpret,
-                        pattern=pattern)
-                    self._kernel_path = leg
-                    break
-                except ValueError:
-                    pass
-        # x-sharded meshes: per-shard resident-band super-kernel (one
-        # launch per super-step, zero collectives inside) when the shard
-        # geometry allows it; the tiled per-sub-step leg otherwise.
-        self._band_super_x = None
-        if (self._band_super is None and self.n_x > 1
-                and ib_x_edge == "periodic"):
-            from cuda_iblb_11_tpu.ops.pallas_step import (
-                make_band_super_substep_xsharded,
-            )
-
-            try:
-                self._band_super_x = make_band_super_substep_xsharded(
-                    cfg, pad_s, K, walls, self.dtype, forcing=forcing,
-                    storage=self.storage, interpret=interpret,
-                    pattern=pattern, xl=self.xl, n_x=self.n_x)
-                self._kernel_path = (
-                    "band_super_xsharded_phase"
-                    if self._band_super_x.phase_general
-                    else "band_super_xsharded")
-            except ValueError:
-                pass
-        if self._band_super is None and self._band_super_x is None:
-            self._kernel_path = "per_substep_tiled"
-            ty0, pad_b = pick_band_leg_tile(cfg, K, self.dtype, self.xl)
-            if cfg.ydim < cfg.force_band + pad_b:
-                raise ValueError(
-                    f"temporal blocking needs ydim >= force_band + {pad_b}"
-                    f" (got ydim={cfg.ydim}, band={cfg.force_band})")
-            self._band_pad = pad_b
-            self._band_substep = make_sharded_fused_substep(
-                cfg, cfg.force_band + pad_b, walls, self.dtype,
-                forcing=forcing, storage=self.storage,
-                interpret=interpret, tile_y=ty0, xl=self.xl,
-                expose_f1_row=cfg.force_band - 1)
-        self._chunk_cache = {}
-
-    def _super_body(self, f_loc, force, q, xs):
-        """One K-step super-step of the local shard (inside shard_map)."""
-        cfg = self.cfg
-        band = cfg.force_band
-        yl, n_y = self.yl, self.n_y
-        pad = self._ghost_pad
-        us, ep, axl, fx, ay, fy = xs
-        iy = jax.lax.axis_index("y")
-        y0 = iy * yl
-
-        fwd = [(k, (k + 1) % n_y) for k in range(n_y)]
-        bwd = [(k, (k - 1) % n_y) for k in range(n_y)]
-        # rows [y0-pad, y0) from the shard below; [y0+yl, y0+yl+pad) above
-        bot_ghost = jax.lax.ppermute(f_loc[:, yl - pad:, :], "y", fwd)
-        top_ghost = jax.lax.ppermute(f_loc[:, :pad, :], "y", bwd)
-
-        ext_rows = band + self._band_pad_s
-        if self._band_gather:
-            # the band spans shard boundaries: assemble the extended band
-            # block identically on EVERY shard (masked contribution +
-            # psum); all shards then run the band kernel on true data and
-            # hold identical band outputs / force / bhalos
-            g = jnp.arange(ext_rows, dtype=jnp.int32)
-            own = (g >= y0) & (g < y0 + yl)
-            vals = f_loc[:, jnp.clip(g - y0, 0, yl - 1), :]
-            band_ext = jax.lax.psum(
-                jnp.where(own[None, :, None], vals, jnp.zeros_like(vals)),
-                "y")
-        else:
-            band_ext = f_loc[:, :ext_rows, :]
-        f_band_new, bhalos, force_band, flux_band = self._band_super(
-            band_ext, force, us, ep, axl, fx, ay, fy)
-
-        # runtime shard flags for the ghost kernel (its docstring): the
-        # band/bulk seam may fall inside any shard's block
-        lb = jnp.clip(band - y0, 0, yl)          # owned band rows
-        inject = jnp.logical_and(y0 <= band, band < y0 + yl)
-        ty_g = self._ghost_substep.ty
-        flags = jnp.stack([
-            inject.astype(jnp.int32),
-            (iy == n_y - 1).astype(jnp.int32),
-            (pad + lb) // ty_g,
-            jnp.int32(cfg.flux_x),   # local == global lane (n_x == 1)
-            jnp.int32(1),
-        ]).astype(jnp.int32)
-        f_block, flux_bulk = self._ghost_substep(
-            flags, f_loc, bot_ghost, top_ghost, bhalos)
-        mid = jax.lax.slice_in_dim(f_block, pad, pad + yl, axis=1)
-        if self._band_gather:
-            # scatter the (replicated) band output back into this shard's
-            # rows; force is already replicated — no psum needed
-            fbp = jnp.concatenate(
-                [f_band_new,
-                 jnp.zeros((9, yl) + f_band_new.shape[2:],
-                           f_band_new.dtype)], axis=1)
-            band_loc = jax.lax.dynamic_slice_in_dim(fbp, y0, yl, axis=1)
-            rows_g = y0 + jnp.arange(yl, dtype=jnp.int32)
-            f_new = jnp.where((rows_g < band)[None, :, None],
-                              band_loc.astype(mid.dtype), mid)
-            force_new = force_band
-        else:
-            is_owner = iy == 0
-            f_new = jnp.concatenate(
-                [jnp.where(is_owner, f_band_new.astype(mid.dtype),
-                           mid[:, :band]), mid[:, band:]], axis=1)
-            force_new = jax.lax.psum(
-                jnp.where(is_owner, force_band,
-                          jnp.zeros_like(force_band)), "y")
-        flux = (jnp.where(iy == 0, jnp.sum(flux_band), 0.0)
-                + jnp.sum(flux_bulk))
-        q = q + jax.lax.psum(flux, "y") / 192.0
-        return f_new, force_new.astype(force.dtype), q
-
-    # force sharding: the inherited P(None, None, "x") — x-sharded
-    # columns; over an n_x == 1 axis that is full replication, which the
-    # per-super-step psum/identical-recompute maintains
-
-    def _band_substep_x(self, blk, force, flags_b):
-        """One sub-step of the band+pad block through the sharded fused
-        kernel: bottom wall inside the kernel, top rows = ghost trapezoid
-        (zero thalo, garbage creeps one row per sub-step), x-halo f1
-        exchange + x-seam patch when the mesh is x-sharded.  Returns
-        (blk_new, seam f1 of row band-1) — collision is cell-local, so
-        the exposed seam row is exact regardless of the x seams."""
-        cfg = self.cfg
-        rows = cfg.force_band + self._band_pad
-        xl, n_x = self.xl, self.n_x
-        aux = self.dtype if self.dtype.itemsize >= 4 else jnp.float32
-        zero8 = jnp.zeros((9, 8, xl), aux)
-        if n_x > 1:
-            fwd_x = [(k, (k + 1) % n_x) for k in range(n_x)]
-            bwd_x = [(k, (k - 1) % n_x) for k in range(n_x)]
-            tau, tau2 = cfg.tau, cfg.tau2
-
-            def collide_col(lane):
-                fc = self._band_force_rows(force, 0, rows, lane=lane)
-                return ref.collide_rows(
-                    blk[:, :, lane:lane + 1].astype(aux), fc.astype(aux),
-                    tau, tau2, self.forcing, self.storage)
-
-            f1_w = collide_col(0)
-            f1_e = collide_col(xl - 1)
-            w_halo = jax.lax.ppermute(f1_e, "x", fwd_x)  # from shard ix-1
-            e_halo = jax.lax.ppermute(f1_w, "x", bwd_x)  # from shard ix+1
-        blk_new, bh = self._band_substep(flags_b, blk, force, zero8, zero8)
-        if n_x > 1:
-            # extend with duplicated end rows: only the trapezoid's top
-            # row and the wall-protected bottom rows ever read them
-            def ext(h):
-                return jnp.concatenate(
-                    [h[:, 0:1, :], h, h[:, rows - 1:rows, :]], axis=1)
-
-            blk_new = self._patch_x_seams(
-                blk_new, ext(w_halo), ext(e_halo),
-                jnp.bool_(True), jnp.bool_(False), yl=rows)
-        return blk_new, bh
-
-    # -- shared super-step plumbing (the tiled and xsuper bodies) ---------
-
-    def _x_extend(self, a, g):
-        """ppermute g ghost columns from each x-neighbour onto `a`."""
-        n_x = self.n_x
-        fwd_x = [(k, (k + 1) % n_x) for k in range(n_x)]
-        bwd_x = [(k, (k - 1) % n_x) for k in range(n_x)]
-        w = a.shape[-1]
-        lg = jax.lax.ppermute(a[..., w - g:], "x", fwd_x)
-        rg = jax.lax.ppermute(a[..., :g], "x", bwd_x)
-        return jnp.concatenate([lg, a, rg], axis=-1)
-
-    def _bulk_ghosts(self, f_loc):
-        """x-extend the bulk block by xpad ghost columns (x-sharded
-        meshes) and ring-exchange the pad ghost ROW blocks — the ONE
-        exchange per K steps."""
-        n_y, pad, yl = self.n_y, self._ghost_pad, self.yl
-        f_x = self._x_extend(f_loc, self._xpad) if self.n_x > 1 else f_loc
-        fwd_y = [(k, (k + 1) % n_y) for k in range(n_y)]
-        bwd_y = [(k, (k - 1) % n_y) for k in range(n_y)]
-        bot = jax.lax.ppermute(f_x[:, yl - pad:, :], "y", fwd_y)
-        top = jax.lax.ppermute(f_x[:, :pad, :], "y", bwd_y)
-        return f_x, bot, top
-
-    def _assemble_band_rows(self, f_loc, rows, y0):
-        """y-replicated band block (rows [0, rows) of the shard's own
-        columns): masked contribution + psum('y') — every shard then runs
-        the band leg on TRUE data (the owner row is the critical path
-        anyway)."""
-        g = jnp.arange(rows, dtype=jnp.int32)
-        own = (g >= y0) & (g < y0 + self.yl)
-        vals = f_loc[:, jnp.clip(g - y0, 0, self.yl - 1), :]
-        return jax.lax.psum(
-            jnp.where(own[None, :, None], vals, jnp.zeros_like(vals)), "y")
-
-    def _run_bulk_ghost(self, f_x, bot, top, bhalos, y0, iy, lane,
-                        col_owned):
-        """Runtime shard flags + ONE ghost-kernel launch; returns the
-        shard's own rows/columns of the K-step bulk output plus the raw
-        per-sub-step flux partials."""
-        yl, xl = self.yl, self.xl
-        band = self.cfg.force_band
-        pad, xpad = self._ghost_pad, self._xpad
-        lb = jnp.clip(band - y0, 0, yl)
-        inject = jnp.logical_and(y0 <= band, band < y0 + yl)
-        ty_g = self._ghost_substep.ty
-        flags = jnp.stack([
-            inject.astype(jnp.int32),
-            (iy == self.n_y - 1).astype(jnp.int32),
-            (pad + lb) // ty_g,
-            jnp.int32(xpad) + lane,
-            col_owned.astype(jnp.int32),
-        ]).astype(jnp.int32)
-        f_block, flux_bulk = self._ghost_substep(flags, f_x, bot, top,
-                                                 bhalos)
-        mid = jax.lax.slice_in_dim(
-            jax.lax.slice_in_dim(f_block, pad, pad + yl, axis=1),
-            xpad, xpad + xl, axis=2)
-        return mid, flux_bulk
-
-    def _scatter_band_rows(self, band_new, mid, y0):
-        """Replace this shard's band rows with the (y-replicated) band
-        output."""
-        band = self.cfg.force_band
-        yl, xl = self.yl, self.xl
-        fbp = jnp.concatenate(
-            [band_new.astype(mid.dtype),
-             jnp.zeros((9, yl, xl), mid.dtype)], axis=1)
-        band_loc = jax.lax.dynamic_slice_in_dim(fbp, y0, yl, axis=1)
-        rows_g = y0 + jnp.arange(yl, dtype=jnp.int32)
-        return jnp.where((rows_g < band)[None, :, None], band_loc, mid)
-
-    def _super_body_xsuper(self, f_loc, force, q, xs):
-        """K-step super-step on an x-sharded mesh with the PER-SHARD
-        resident-band super-kernel (make_band_super_substep_xsharded): the
-        band block and the force are x-extended by gx ghost columns
-        ppermuted once per super-step alongside the bulk's ghost
-        rows/columns — ONE band launch for all K sub-steps with zero
-        collectives inside (vs the tiled leg's K launches + K psum('x')
-        rounds)."""
-        cfg = self.cfg
-        band = cfg.force_band
-        yl, xl = self.yl, self.xl
-        xpad = self._xpad
-        sup = self._band_super_x
-        gx = sup.gx
-        us, ep, axl, fx, ay, fy = xs
-        iy = jax.lax.axis_index("y")
-        ix = jax.lax.axis_index("x")
-        y0 = iy * yl
-        x0 = ix * xl
-        aux = self.dtype if self.dtype.itemsize >= 4 else jnp.float32
-        force_dt = force.dtype
-
-        # --- bulk block + ghosts (one exchange per K steps, as tiled) ----
-        f_x, bot_ghost, top_ghost = self._bulk_ghosts(f_loc)
-
-        # --- band block: y-assembled (replicated), then x-extended by gx
-        blk = self._assemble_band_rows(f_loc, band + self._band_pad_s, y0)
-        blk_e = self._x_extend(blk, gx)
-        force_e = self._x_extend(force, gx)
-
-        # --- the shard's cilium subset: window-local point coordinates
-        # are lift-invariant, so a cyclic roll of the global per-cilium
-        # blocks realizes the subset
-        if sup.phase_general:
-            # xl is NOT a c_space multiple: all of this shard's cilia
-            # share one runtime phase r in [0, cw) within the kernel's
-            # widened static window grid (pallas_step.make_band_super_
-            # substep_xsharded docstring).  mstart = first cilium lift
-            # whose natural window starts inside the extended block;
-            # r is baked into the x-anchors, and slots whose natural
-            # window overruns the block are made inert (eps = 0 — the
-            # x-neighbour that owns those columns computes them).
-            cwj = jnp.int32(sup.cw)
-            x0e = jnp.int32(ix) * jnp.int32(xl) - jnp.int32(gx)
-            mstart = -((-(x0e + jnp.int32(sup.halo))) // cwj)
-            r = mstart * cwj - jnp.int32(sup.halo) - x0e
-            shift = jnp.mod(mstart, jnp.int32(cfg.c_num))
-            valid = (r + jnp.arange(sup.c_sub, dtype=jnp.int32) * cwj
-                     + jnp.int32(sup.wcov) <= jnp.int32(sup.width))
-        else:
-            shift = jnp.mod(jnp.int32(sup.m0) + ix * jnp.int32(sup.c_step),
-                            jnp.int32(cfg.c_num))
-
-        def sub(a, axis):
-            return jax.lax.slice_in_dim(
-                jnp.roll(a, -shift, axis=axis), 0, sup.c_sub, axis=axis)
-
-        us_s, ep_s = sub(us, 2), sub(ep, 1)
-        axl_s, fx_s = sub(axl, 1), sub(fx, 1)
-        ay_s, fy_s = sub(ay, 1), sub(fy, 1)
-        if sup.phase_general:
-            ep_s = ep_s * valid[None, :, None].astype(ep_s.dtype)
-            axl_s = axl_s + r
-
-        # --- flux flags + ONE band-super launch ---------------------------
-        fxc = cfg.flux_x
-        col_owned = (fxc >= x0) & (fxc < x0 + xl)
-        lane = jnp.clip(fxc - x0, 0, xl - 1) + gx
-        flags_b = jnp.stack([
-            lane.astype(jnp.int32),
-            jnp.logical_and(col_owned, iy == 0).astype(jnp.int32),
-        ]).astype(jnp.int32)
-        fb_e, bh_e, fo_e, flux_band = sup(
-            flags_b, blk_e, force_e, us_s, ep_s, axl_s, fx_s, ay_s, fy_s)
-        f_band_new = fb_e[..., gx:gx + xl]
-        force_new = fo_e[..., gx:gx + xl]
-        bh = bh_e[..., gx:gx + xl]          # exact interior seam rows
-        bhalos = self._x_extend(bh, xpad)
-
-        # --- bulk: one ghost-kernel launch + band scatter-back ------------
-        mid, flux_bulk = self._run_bulk_ghost(
-            f_x, bot_ghost, top_ghost, bhalos, y0, iy,
-            jnp.clip(fxc - x0, 0, xl - 1), col_owned)
-        f_new = self._scatter_band_rows(f_band_new, mid, y0)
-        # flux_band is already [owner & iy==0]-masked inside the kernel
-        flux = (jnp.sum(flux_band).astype(aux)
-                + jnp.sum(flux_bulk).astype(aux))
-        q = q + jax.lax.psum(jax.lax.psum(flux, "x"), "y") / 192.0
-        return f_new, force_new.astype(force_dt), q
-
-    def _super_body_tiled(self, f_loc, force, q, xs):
-        """K-step super-step with the TILED per-sub-step band leg: the
-        band block (rows [0, band+pad_b) x the shard's own columns,
-        y-replicated) advances K single sub-steps through the sharded
-        fused kernel with full IB coupling per sub-step (partial delta
-        integrals + psum('x'), ib_band.interpolate_partial/spread_local),
-        collecting the per-sub-step seam f1; the bulk then advances K
-        steps in ONE ghost-temporal-kernel launch on the x/y-extended
-        block.  Engages when the resident-band super-kernel is ineligible
-        (X too wide for VMEM, c_space not lane-aligned) or the mesh is
-        x-sharded — including BASELINE config-5 (8192^2) on 2-D meshes."""
-        from cuda_iblb_11_tpu.ops import ib_band
-
-        cfg = self.cfg
-        band = cfg.force_band
-        yl, xl, n_x = self.yl, self.xl, self.n_x
-        xpad = self._xpad
-        K = self.temporal
-        s_pts, u_s, eps, anchor, frac = xs
-        iy = jax.lax.axis_index("y")
-        ix = jax.lax.axis_index("x")
-        y0 = iy * yl
-        x0 = ix * xl
-        aux = self.dtype if self.dtype.itemsize >= 4 else jnp.float32
-        force_dt = force.dtype
-
-        # --- x/y-extended bulk block + ghosts (ONE exchange per K steps)
-        f_x, bot_ghost, top_ghost = self._bulk_ghosts(f_loc)
-
-        # --- band block: rows [0, band+pad_b) of the shard's own columns,
-        # assembled across the y-shards (y-replicated)
-        ext = band + self._band_pad
-        blk = self._assemble_band_rows(f_loc, ext, y0)
-
-        # --- K band sub-steps with per-sub-step IB ------------------------
-        fx_col = cfg.flux_x
-        col_owned = (fx_col >= x0) & (fx_col < x0 + xl)
-        lane = jnp.clip(fx_col - x0, 0, xl - 1)
-        flags_b = jnp.array([0, 1, 0], jnp.int32)  # y0=0, bottom wall
-        cxv = jnp.asarray(C[:, 0], aux)
-        force = force.astype(aux)
-        bhs = []
-        flux_band = jnp.zeros((), aux)
-        for s in range(K):
-            blk, bh = self._band_substep_x(blk, force, flags_b)
-            if self.ib_x_edge == "reference":
-                # strict-parity quirk stencils on the (y-replicated) band
-                # block: every stencil cell lies in the valid trapezoid
-                # rows (same argument as the single-chip temporal quirk
-                # leg, models/mucociliary.py); x-ownership masking + a
-                # psum('x') ONLY (the y-shards hold identical blocks)
-                f_s = _stencil_interp_block(
-                    blk, s_pts[s], u_s[s], cfg, 0, ext, x0, xl,
-                    self.storage)
-                f_s = jax.lax.psum(f_s, "x")
-                force = _quirk_spread_block(
-                    f_s, s_pts[s], eps[s], cfg, x0, xl, band).astype(aux)
-            else:
-                anchored = (anchor[s], frac[s])
-                i_q = ib_band.interpolate_partial(
-                    blk, cfg.xdim, band, 0, x0, band, storage=self.storage,
-                    anchored=anchored)
-                i_q = jax.lax.psum(i_q, "x")
-                f_s = ib_band.finish_interpolate(
-                    i_q, u_s[s].astype(i_q.dtype))
-                force = ib_band.spread_local(
-                    f_s, eps[s], cfg.xdim, band, x0, xl,
-                    anchored=anchored).astype(aux)
-            # flux: band rows' u_x at the flux column, half-force
-            # corrected (ImmersedBoundary.cu:249-264)
-            col_f = blk[:, :band, lane].astype(aux)
-            rho_col = jnp.sum(col_f, axis=0)
-            if self.storage == "deviatoric":
-                rho_col = 1.0 + rho_col
-            mom_col = jnp.einsum("iy,i->y", col_f, cxv,
-                                 precision=jax.lax.Precision.HIGH)
-            uxc = (mom_col + 0.5 * force[0, :, lane]) / rho_col
-            flux_band = flux_band + jnp.where(col_owned, jnp.sum(uxc), 0.0)
-            bhs.append(bh)
-        bhalos = jnp.stack(bhs)                          # [K, 9, 8, xl]
-        if n_x > 1:
-            bhalos = self._x_extend(bhalos, xpad)
-
-        # --- bulk: one ghost-kernel launch + band scatter-back ------------
-        mid, flux_bulk = self._run_bulk_ghost(
-            f_x, bot_ghost, top_ghost, bhalos, y0, iy, lane, col_owned)
-        f_new = self._scatter_band_rows(blk[:, :band], mid, y0)
-        flux = (jnp.where(iy == 0, flux_band, jnp.zeros_like(flux_band))
-                + jnp.sum(flux_bulk).astype(flux_band.dtype))
-        q = q + jax.lax.psum(jax.lax.psum(flux, "x"), "y") / 192.0
-        return f_new, force.astype(force_dt), q
-
-    def _make_chunk(self, n_steps: int):
-        from cuda_iblb_11_tpu.models.mucociliary import (
-            prep_band_super_points,
-        )
-
-        cfg = self.cfg
-        K = self.temporal
-        n_super, rem = divmod(n_steps, K)
-        nk = n_super * K
-        aux = self.dtype if self.dtype.itemsize >= 4 else jnp.float32
-        halo = 0 if self._band_super is None else self._band_super.halo
-
-        def local_chunk(f, force, lasts, q, it):
-            pos, s_all, u_s, eps, anchor, frac = self._boundary_series(
-                it, n_steps)
-
-            if n_super:
-                if self._band_super is not None:
-                    xs_sup = prep_band_super_points(
-                        cfg, K, halo, aux, u_s[:nk], eps[:nk], anchor[:nk],
-                        frac[:nk], n_super)
-                    body = self._super_body
-                elif self._band_super_x is not None:
-                    xs_sup = prep_band_super_points(
-                        cfg, K, self._band_super_x.halo, aux, u_s[:nk],
-                        eps[:nk], anchor[:nk], frac[:nk], n_super)
-                    body = self._super_body_xsuper
-                else:
-                    def rs(x):
-                        return x.reshape((n_super, K) + x.shape[1:])
-
-                    xs_sup = (rs(s_all[:nk]), rs(u_s[:nk]), rs(eps[:nk]),
-                              rs(anchor[:nk]), rs(frac[:nk]))
-                    body = self._super_body_tiled
-
-                def sbody(carry, xs):
-                    return body(*carry, xs), None
-
-                (f, force, q), _ = jax.lax.scan(
-                    sbody, (f, force, q), xs_sup)
-            if rem:
-                # remainder steps (n_steps % K) through the per-step
-                # sharded kernel path
-                f, force, q = self._scan_steps(
-                    f, force, q,
-                    (s_all[nk:], u_s[nk:], eps[nk:], anchor[nk:],
-                     frac[nk:]))
-            return (f, force, pos[-1].astype(lasts.dtype), q,
-                    it + n_steps)
-
-        return jax.jit(
-            jax.shard_map(
-                local_chunk,
-                mesh=self.mesh,
-                in_specs=self._chunk_specs(),
-                out_specs=self._chunk_specs(),
-                check_vma=False,
-            ),
-            donate_argnums=(0, 1),
-        )

@@ -1,4 +1,4 @@
-"""Run driver — the TPU-native counterpart of the reference's host loop
+"""Run driver — the counterpart of the reference's host loop
 (main.cu:263-1066): interval-chunked jitted execution, flux series, optional
 full-field + cilia snapshots, SimLog with completion-time prediction, and
 (new) checkpoint/resume and throughput reporting."""
@@ -28,11 +28,12 @@ class _SnapshotPipeline:
     The reference dedicates a CUDA stream to output so interval snapshots
     ride alongside the next iterations' enqueued kernels (main.cu:793-809
     o_stream/events, :926-933 async flux D2H, :938-996 snapshots while
-    compute is queued).  TPU analogue: the runner computes the output
-    fields ON DEVICE at the boundary, dispatches the next chunk (JAX async
-    dispatch returns immediately), kicks off the device→host copies
+    compute is queued).  Here the runner computes the output fields ON
+    DEVICE at the boundary, dispatches the next chunk (JAX async dispatch
+    returns immediately), kicks off the device→host copies
     (``copy_to_host_async``), and hands the arrays to a single worker
-    thread that formats and writes the files while the TPU runs the chunk.
+    thread that formats and writes the files while the device runs the
+    chunk.
     At 8192² a text snapshot is ~0.8 GB of transfer plus multi-GB of
     formatted text — strictly serial, that all happened with the device
     idle (the pre-r5 loop at runner.py history: pull → format → write →
@@ -103,20 +104,20 @@ class _SnapshotPipeline:
                 self._pool.shutdown(wait=True)
 
 
-def _resolve_overlap(overlap, snapshot_format: str):
-    """``--overlap auto``: overlap interval output with compute unless the
-    measured tradeoff says not to — a POLICY with the pick + reason
-    recorded in SimLog, mirroring ``--temporal auto`` / ``--mesh auto``.
+def _host_cores() -> int:
+    """CPU cores this process may run on (not the machine's total)."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:  # platforms without sched_getaffinity
+        return os.cpu_count() or 1
 
-    MEASURED (validation/bigdata_e2e.json, 2048² x 100k steps, P_num=100,
-    interval=1000): npz snapshots are +59% end-to-end with overlap on
-    (1,599 vs 1,007 MLUPS) — the worker thread's cheap binary pack rides
-    under the chunk.  The text format on a 1-core host is ~9% SLOWER with
-    overlap (294 vs 321): ~19 s of float formatting per snapshot saturates
-    the only core and starves the dispatch loop (the reference never hits
-    this — its o_stream formatting rides a spare CPU core,
-    main.cu:793-809).  So auto = on, EXCEPT text snapshots on hosts
-    without a spare core for the formatter.
+
+def _resolve_overlap(overlap, snapshot_format: str):
+    """``--overlap auto``: overlap interval output with compute, except
+    text snapshots on a host with at most two cores, where the float
+    formatting of a snapshot takes a whole core and starves the loop that
+    dispatches the next chunk (the reference's o_stream formatting had a
+    spare core, main.cu:793-809).  The pick and its reason go to SimLog.
 
     Accepts bools (API callers pin the mode for A/B runs) and the CLI
     strings {"auto", "on", "off"}.  Returns (bool, reason)."""
@@ -129,32 +130,19 @@ def _resolve_overlap(overlap, snapshot_format: str):
     if overlap != "auto":
         raise ValueError(f"overlap must be a bool or one of "
                          f"auto/on/off, got {overlap!r}")
-    cores = os.cpu_count() or 1
+    cores = _host_cores()
     if snapshot_format == "dat" and cores <= 2:
         return False, (f"auto: serial — text formatting on a {cores}-core "
-                       f"host starves the dispatch loop (measured ~9% "
-                       f"slower overlapped, validation/bigdata_e2e.json)")
+                       f"host would starve the dispatch loop")
     return True, ("auto: overlapped — snapshot write rides under the next "
-                  "chunk's device compute (measured +59% for npz, "
-                  "validation/bigdata_e2e.json)")
+                  "chunk's device compute")
 
 
-def _resolve_auto_mesh(cfg, backend):
-    """``--mesh auto``: the largest eligible (n_y, n_x) factorization of
-    the visible devices — a POLICY, not physics, mirroring ``--temporal
-    auto``'s contract (the pick + reason are recorded in SimLog; pass an
-    explicit Y,X for runs that must pin their decomposition).  The
-    scale-out analogue of the reference's per-cluster launch scripts
-    hardcoding a geometry per machine (cilia6.sh:7-17).
-
-    Candidates use ALL visible devices (ny*nx = n).  Preference order:
-    balanced shapes first (halo perimeter scales with the aspect ratio),
-    then x-major on ties (x-sharding keeps the cilia band shard-resident,
-    enabling the zero-collective band super-kernel).  A candidate is
-    pallas-eligible when every shard tile meets the sharded kernels'
-    structural constraints (xl % 128 == 0, ydim % 8*ny == 0, f32/bf16);
-    when the pallas path is wanted but no factorization qualifies, fall
-    back to the first candidate that divides the grid at all (jnp path).
+def _resolve_auto_mesh(cfg):
+    """``--mesh auto``: the most balanced (n_y, n_x) factorization of the
+    visible devices that divides the grid, x-major on ties (halo perimeter
+    grows with the aspect ratio).  The pick and its reason go to SimLog;
+    pass an explicit Y,X for runs that must pin their decomposition.
 
     Returns (mesh_str_or_None, reason).  None = run unsharded."""
     import jax
@@ -164,41 +152,39 @@ def _resolve_auto_mesh(cfg, backend):
         return None, "auto: single visible device — unsharded"
     cands = [(y, n // y) for y in range(1, n + 1) if n % y == 0]
     cands.sort(key=lambda t: (abs(t[0] - t[1]), -t[1]))
-    pallas_want = backend == "pallas" or (
-        backend == "auto" and jax.default_backend() == "tpu")
-    fallback = None
     for ny, nx in cands:
-        if cfg.ydim % ny or cfg.xdim % nx:
-            continue
-        if fallback is None:
-            fallback = (ny, nx)
-        xl = cfg.xdim // nx
-        pallas_ok = (xl % 128 == 0 and cfg.ydim % (8 * ny) == 0
-                     and str(cfg.dtype) in ("float32", "bfloat16"))
-        if pallas_ok and pallas_want:
-            return f"{ny},{nx}", (
-                f"auto: ({ny},{nx}) over {n} devices — balanced-first, "
-                f"x-major on ties; pallas-eligible shard tile "
-                f"{cfg.ydim // ny}x{xl}")
-    if fallback is not None:
-        ny, nx = fallback
-        why = ("no pallas-eligible factorization — jnp sharded path"
-               if pallas_want else "jnp sharded path")
-        return f"{ny},{nx}", (f"auto: ({ny},{nx}) over {n} devices — {why}")
+        if cfg.ydim % ny == 0 and cfg.xdim % nx == 0:
+            return f"{ny},{nx}", (f"auto: ({ny},{nx}) over {n} devices — "
+                                  f"balanced-first, x-major on ties")
     return None, (f"auto: no factorization of {n} devices divides the "
                   f"{cfg.ydim}x{cfg.xdim} grid — unsharded")
 
 
-def _make_sim(cfg, backend, forcing, temporal, mesh, ib_x_edge="periodic",
+def _make_sim(cfg, backend, forcing, mesh, ib_x_edge="periodic",
               pattern="no_mucus"):
-    """Build the simulation: single-device MucociliarySim, or a sharded sim
-    over a (Y, X) device mesh when `mesh` is given ("2,4", or "auto" to
-    pick the largest eligible factorization of the visible devices)."""
+    """Build the simulation: single-device MucociliarySim, or the sharded
+    XLA sim over a (Y, X) device mesh when `mesh` is given ("2,4", or
+    "auto" to pick a factorization of the visible devices)."""
     mesh_reason = None
     if str(mesh) == "auto":
-        mesh, mesh_reason = _resolve_auto_mesh(cfg, backend)
-    sim = _make_sim_resolved(cfg, backend, forcing, temporal, mesh,
-                             ib_x_edge, pattern)
+        mesh, mesh_reason = _resolve_auto_mesh(cfg)
+    if not mesh:
+        sim = MucociliarySim(cfg, backend=backend, forcing=forcing,
+                             ib_x_edge=ib_x_edge, pattern=pattern)
+    else:
+        if backend == "triton":
+            raise ValueError("backend 'triton' runs on one device; --mesh "
+                             "runs the sharded XLA path")
+        from cuda_iblb_11_tpu.parallel.sharded import (
+            ShardedMucociliarySim, make_mesh,
+        )
+
+        parts = [int(v) for v in str(mesh).split(",")]
+        if len(parts) != 2 or min(parts) < 1:
+            raise ValueError(
+                f"--mesh must be 'Y,X' positive ints, got {mesh!r}")
+        sim = ShardedMucociliarySim(cfg, make_mesh(*parts), forcing=forcing,
+                                    ib_x_edge=ib_x_edge, pattern=pattern)
     if mesh_reason is not None:
         sim.mesh_requested = "auto"
         sim.mesh_reason = mesh_reason
@@ -206,87 +192,10 @@ def _make_sim(cfg, backend, forcing, temporal, mesh, ib_x_edge="periodic",
     return sim
 
 
-def _make_sim_resolved(cfg, backend, forcing, temporal, mesh,
-                       ib_x_edge="periodic", pattern="no_mucus"):
-    if not mesh:
-        return MucociliarySim(cfg, backend=backend, forcing=forcing,
-                              temporal=temporal, ib_x_edge=ib_x_edge,
-                              pattern=pattern)
-    import jax
-
-    from cuda_iblb_11_tpu.parallel.sharded import (
-        ShardedMucociliarySim, ShardedPallasSim, ShardedTemporalSim,
-        make_mesh,
-    )
-
-    parts = [int(v) for v in str(mesh).split(",")]
-    if len(parts) != 2 or min(parts) < 1:
-        raise ValueError(f"--mesh must be 'Y,X' positive ints, got {mesh!r}")
-    m = make_mesh(*parts)
-    xl = cfg.xdim // parts[1]
-    pallas_ok = (jax.default_backend() == "tpu" and xl % 128 == 0
-                 and cfg.ydim % (8 * parts[0]) == 0
-                 and str(cfg.dtype) in ("float32", "bfloat16"))
-    if backend == "pallas" or (backend == "auto" and pallas_ok):
-        if temporal == "auto":
-            # largest eligible K for the communication-avoiding sharded
-            # path; quiet fallback to the per-step sharded kernel (the
-            # user asked for a policy, not a specific K)
-            err = None
-            for K in (16, 8, 4, 2):
-                try:
-                    sim = ShardedTemporalSim(cfg, m, forcing=forcing,
-                                             temporal=K,
-                                             ib_x_edge=ib_x_edge,
-                                             pattern=pattern)
-                    sim.temporal_requested = "auto"
-                    sim.temporal_reason = (
-                        f"auto: K={K} (largest eligible sharded)")
-                    return sim
-                except ValueError as e:
-                    err = e
-            sim = ShardedPallasSim(cfg, m, forcing=forcing,
-                                   ib_x_edge=ib_x_edge, pattern=pattern)
-            sim.temporal_requested = "auto"
-            # keep the LAST rejection (K=2, the least demanding candidate)
-            # so SimLog records WHY no sharded K fit — same contract as
-            # the single-device resolver (models/mucociliary.py)
-            sim.temporal_reason = (f"auto: no eligible K for the sharded "
-                                   f"temporal path ({err})")
-            return sim
-        if temporal > 1:
-            # communication-avoiding K-step path; fall back to the
-            # per-step sharded kernel when ineligible — loudly, so a user
-            # who asked for K-step blocking knows they are not getting it
-            # (different perf class, not different physics)
-            try:
-                return ShardedTemporalSim(cfg, m, forcing=forcing,
-                                          temporal=temporal,
-                                          ib_x_edge=ib_x_edge,
-                                          pattern=pattern)
-            except ValueError as e:
-                print(f"warning: --temporal {temporal} with --mesh {mesh} "
-                      f"is not eligible for the K-step sharded path ({e}); "
-                      f"falling back to the per-step sharded kernel",
-                      file=sys.stderr)
-        return ShardedPallasSim(cfg, m, forcing=forcing,
-                                ib_x_edge=ib_x_edge, pattern=pattern)
-    if temporal != "auto" and temporal > 1:
-        print(f"warning: --temporal {temporal} requires the sharded pallas "
-              f"path; the jnp sharded backend steps one iteration at a "
-              f"time (temporal ignored)", file=sys.stderr)
-    sim = ShardedMucociliarySim(cfg, m, forcing=forcing,
-                                ib_x_edge=ib_x_edge, pattern=pattern)
-    if temporal == "auto":
-        sim.temporal_requested = "auto"
-        sim.temporal_reason = "auto: jnp sharded backend has no temporal path"
-    return sim
-
-
 def _select_device(cfg: SimConfig, mesh=None):
     """Reference device-selection semantics (main.cu:395-396): the ShARC
     flag picks device 3 (the cluster's assigned GPU) instead of device 0.
-    TPU analogue: returns the jax device the single-device run should be
+    Returns the jax device the single-device run should be
     pinned to, or None when no override applies (mesh runs span devices;
     ShARC on a host with < 4 devices falls back to the default, loudly)."""
     if mesh or not cfg.sharc:
@@ -300,26 +209,6 @@ def _select_device(cfg: SimConfig, mesh=None):
           f"device(s) are visible; using the default device",
           file=sys.stderr)
     return None
-
-
-def _last_simlog_temporal_k(simlog_path: str) -> int | None:
-    """The most recent 'Temporal K:' value recorded in an existing SimLog
-    (the resumed-from run's resolved K — the LAST line wins, since each
-    resume appends its own).  Values may carry an auto-reason suffix,
-    e.g. 'Temporal K: 16 (auto: ...)'; None when absent/unparseable."""
-    last = None
-    try:
-        with open(simlog_path) as fh:
-            for line in fh:
-                if line.startswith("Temporal K:"):
-                    tok = line.split(":", 1)[1].strip().split()[0]
-                    try:
-                        last = int(tok)
-                    except ValueError:
-                        pass
-    except FileNotFoundError:
-        pass
-    return last
 
 
 def _resume_flux_rows(flux_path: str, cfg: SimConfig, it0: int,
@@ -365,7 +254,7 @@ def _resume_flux_rows(flux_path: str, cfg: SimConfig, it0: int,
 def run(cfg: SimConfig, output_root: str = "Data/Test", backend: str = "auto",
         forcing: str = "trt_split", resume_from: str | None = None,
         checkpoint_every: int = 0, quiet: bool = False,
-        profile_dir: str | None = None, temporal: int | str = 1,
+        profile_dir: str | None = None,
         mesh: str | None = None, ib_x_edge: str = "periodic",
         checkpoint_format: str = "npz", pattern: str = "no_mucus",
         snapshot_format: str = "dat",
@@ -377,7 +266,7 @@ def run(cfg: SimConfig, output_root: str = "Data/Test", backend: str = "auto",
     kw = dict(
         output_root=output_root, backend=backend, forcing=forcing,
         resume_from=resume_from, checkpoint_every=checkpoint_every,
-        quiet=quiet, profile_dir=profile_dir, temporal=temporal, mesh=mesh,
+        quiet=quiet, profile_dir=profile_dir, mesh=mesh,
         ib_x_edge=ib_x_edge, checkpoint_format=checkpoint_format,
         pattern=pattern, snapshot_format=snapshot_format, overlap=overlap,
         device=device)
@@ -393,7 +282,7 @@ def _run_body(cfg: SimConfig, output_root: str = "Data/Test",
               backend: str = "auto",
               forcing: str = "trt_split", resume_from: str | None = None,
               checkpoint_every: int = 0, quiet: bool = False,
-              profile_dir: str | None = None, temporal: int | str = 1,
+              profile_dir: str | None = None,
               mesh: str | None = None, ib_x_edge: str = "periodic",
               checkpoint_format: str = "npz", pattern: str = "no_mucus",
               snapshot_format: str = "dat", overlap: bool | str = "auto",
@@ -417,8 +306,7 @@ def _run_body(cfg: SimConfig, output_root: str = "Data/Test",
     Returns a summary dict (runtime, MLUPS incl. end-to-end, final Q)."""
     cfg.validate()
     overlap, overlap_reason = _resolve_overlap(overlap, snapshot_format)
-    sim = _make_sim(cfg, backend, forcing, temporal, mesh, ib_x_edge,
-                    pattern)
+    sim = _make_sim(cfg, backend, forcing, mesh, ib_x_edge, pattern)
     profiling = False
     if profile_dir:
         import jax
@@ -435,8 +323,8 @@ def _run_body(cfg: SimConfig, output_root: str = "Data/Test",
     if pattern != "no_mucus":
         extra["Pattern"] = pattern
     if getattr(sim, "mesh_requested", None) == "auto":
-        # resolved pick + reason, like --temporal auto (policy decisions
-        # are reproducible from the run's own artifacts)
+        # resolved pick + reason (policy decisions are reproducible from
+        # the run's own artifacts)
         extra["Mesh"] = (f"{sim.mesh_resolved or 'unsharded'} "
                          f"({sim.mesh_reason})")
     elif mesh:
@@ -451,21 +339,14 @@ def _run_body(cfg: SimConfig, output_root: str = "Data/Test",
     extra["Resolved backend"] = resolved["backend"] + (
         f" ({resolved['backend_reason']})"
         if resolved["backend_reason"] else "")
-    extra["Kernel path"] = resolved["band_leg"]
     extra["Storage"] = resolved["storage"]
     extra["IB path"] = resolved["ib_path"]
     if cfg.bigdata:
         extra["Snapshot overlap"] = (
             f"{'on' if overlap else 'off'} ({overlap_reason})")
-    extra["Temporal K"] = resolved["temporal"]
-    if resolved.get("temporal_requested") == "auto":
-        extra["Temporal K"] = (
-            f"{resolved['temporal']} ({resolved['temporal_reason']})")
     if not quiet:
         print(f"Execution: backend={extra['Resolved backend']} "
-              f"kernel={resolved['band_leg']} "
               f"storage={resolved['storage']} "
-              f"temporal={resolved['temporal']} "
               f"ib={resolved['ib_path']}")
 
     if resume_from:
@@ -477,9 +358,8 @@ def _run_body(cfg: SimConfig, output_root: str = "Data/Test",
             if mesh:
                 state = sim.place_state(state)  # re-shard onto the mesh
         if not mesh and state.force.shape[1] == cfg.ydim:
-            # jnp-mesh-saved checkpoints keep the force full-size
-            # [2, Y, X] (the pallas layouts are band-only already); the
-            # single-device layout is band-only (zero above the band
+            # mesh-saved checkpoints keep the force full-size [2, Y, X];
+            # the single-device layout is band-only (zero above the band
             # by construction — ImmersedBoundary.cu:166-231)
             state = state._replace(force=state.force[:, :cfg.force_band])
         it0 = int(state.it)
@@ -491,26 +371,12 @@ def _run_body(cfg: SimConfig, output_root: str = "Data/Test",
         # new interval.
         keep = _resume_flux_rows(paths.flux_path, cfg, it0, interval)
         flux = FluxWriter(paths.flux_path, cfg, keep_rows=keep)
-        # a resume under a different resolved temporal K switches kernel
-        # path mid-run (not bit-identical across K — f32 re-association,
-        # ~1e-6 rel-L2 class): make the numeric discontinuity VISIBLE in
-        # the SimLog the moment it happens, since --temporal auto makes
-        # it easy to land silently (ADVICE r4)
-        prev_k = _last_simlog_temporal_k(paths.simlog_path)
         simlog.write_resume_note(it0)
-        if prev_k is not None and prev_k != int(resolved["temporal"]):
-            note = (f"NOTE: resumed with temporal K={resolved['temporal']} "
-                    f"(original run: K={prev_k}) — different kernel path, "
-                    f"not bit-identical across the switch")
-            simlog.write_extra({"Resume": note})
-            if not quiet:
-                print(f"warning: {note}", file=sys.stderr)
         # a resume may change the execution path (different backend /
         # mesh / machine) — record the resumed run's resolved config too
         simlog.write_extra({k: v for k, v in extra.items()
-                            if k.startswith(("Resolved", "Kernel",
-                                             "Storage", "IB path",
-                                             "Temporal"))})
+                            if k.startswith(("Resolved", "Storage",
+                                             "IB path"))})
         if not quiet:
             print(f"Resumed from {resume_from} at it={it0}")
     else:

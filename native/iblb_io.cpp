@@ -1,4 +1,4 @@
-// Native I/O runtime for the TPU IB-LBM framework.
+// Native I/O runtime for the IB-LBM framework.
 //
 // The reference's runtime is native C++ (host driver main.cu:263-1066 +
 // portable timer seconds.cpp); here the performance-relevant runtime pieces

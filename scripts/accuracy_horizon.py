@@ -1,29 +1,22 @@
-"""Long-horizon accuracy characterization (VERDICT r2 item 1).
+"""Long-horizon accuracy characterization.
 
-Measures velocity rel-L2 error growth of the production modes:
+Measures velocity rel-L2 error growth of f32 (deviatoric, trt_split)
+against the f64 oracle on the reference channel (192^2, 4 cilia):
 
-  cpu leg  — f32 (deviatoric, trt_split) vs the f64 oracle on the reference
-             channel (192^2, 4 cilia), horizons out to 20k steps (a fifth
-             of the reference's 100k-step beat).  Establishes the
-             f32-vs-f64 growth law at small scale.
-  tpu leg  — 2048^2 production grid: the primary benchmark mode (temporal
-             K=16 + resident-band IB super-kernel) vs the single-step f32
-             fused kernel, horizons out to 32,768 steps.  Establishes the
-             re-association drift law at production scale (the single-step
-             path's own f32-vs-f64 law comes from the cpu leg; the
-             temporal per-sub-step path is bit-identical to single-step).
+  cpu leg  — horizons out to 20k steps (a fifth of the reference's
+             100k-step beat).  Establishes the f32-vs-f64 growth law at
+             small scale.
 
 Writes validation/accuracy_horizon.json (one entry per horizon per pair)
 and prints the fitted power law error ~ a * steps^p for each pair.
 
 Run:  python scripts/accuracy_horizon.py cpu
-      python scripts/accuracy_horizon.py tpu
       python scripts/accuracy_horizon.py cpu_full   # full 100k-step beat, 192^2
       python scripts/accuracy_horizon.py cpu_mid    # full beat, 384x192 mid grid
 
 The cpu_full / cpu_mid legs measure (not extrapolate) the f32-vs-f64
 error over the reference's complete 100,000-step beat period
-(`/root/reference/CUDA_IBLB_11/main.cu:300` ITERATIONS = T*I_pow with the
+(`CUDA_IBLB_11/main.cu:300` ITERATIONS = T*I_pow with the
 default T=1e5, I_pow=1): VERDICT r3 item 1.
 """
 
@@ -44,13 +37,11 @@ import time
 
 LEG = sys.argv[1] if len(sys.argv) > 1 else "cpu"
 
-if LEG.startswith("cpu"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_enable_x64", True)
-
 import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -65,13 +56,8 @@ OUT = os.path.join(os.path.dirname(__file__), "..", "validation",
 
 def velocity(sim, st):
     force = ib_band.pad_band(st.force, sim.cfg.ydim)
-    # scoped x64 so the f64 evaluation is honored on the tpu leg too —
-    # without it the astype silently no-ops to f32 there (the cpu leg
-    # sets the global flag above)
-    with jax.enable_x64(True):
-        _, u = ref.corrected_velocity(st.f.astype(jnp.float64),
-                                      force.astype(jnp.float64),
-                                      sim.storage)
+    _, u = ref.corrected_velocity(st.f.astype(jnp.float64),
+                                  force.astype(jnp.float64), sim.storage)
     return u
 
 
@@ -152,16 +138,6 @@ def main():
         }
         horizons = [5000, 20000, 50000, 100000]
         rows += walk(pairs, horizons, "cpu_mid_384x192_f32_vs_f64")
-    elif LEG == "tpu":
-        assert jax.default_backend() == "tpu", jax.devices()
-        cfg = SimConfig(c_num=16, c_space=128, ydim=2048, dtype="float32")
-        pairs = {
-            "single_step_f32": MucociliarySim(cfg, backend="pallas"),
-            "temporal16_super": MucociliarySim(cfg, backend="pallas",
-                                               temporal=16),
-        }
-        horizons = [512, 2048, 8192, 32768]
-        rows += walk(pairs, horizons, "tpu_2048sq_super_vs_single")
     else:
         raise SystemExit(f"unknown leg {LEG!r}")
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Metachronal-wavelength sweep — the TPU counterpart of the reference's
+# Metachronal-wavelength sweep — the counterpart of the reference's
 # cluster launch scripts (CUDA_IBLB_11/{app,cilia6,cilia12,multiapp}.sh),
 # which swept c_fraction for fixed c_num with
 #   ./app <c_fraction> <c_num> <c_space> <Re> <T_num> <T_pow> <I_pow> <P_num> <ShARC> <BigData>

@@ -3,15 +3,13 @@ net flux per beat period as a function of c_fraction — the number of
 metachronal wavelengths across the cilia array (phase lag p_step =
 T*c_fraction/c_num between neighbours, main.cu:102-103,336).
 
-Run at 2048x2048 with 16 cilia on the temporal+super-kernel fast path:
-8 points x 100,000 steps each = 3.4 trillion site updates, ~10 minutes on
-one TPU v5e chip (the reference's cluster sweep ran each point for ~2.7
-hours on a GPU at 1/70 the cell count).
+Run at 2048x2048 with 16 cilia (backend auto): 8 points x 100,000 steps
+each = 3.4 trillion site updates (the reference's cluster sweep ran each
+point for ~2.7 hours on a GPU at 1/70 the cell count).
 
-Result (validation/metachrony.json, 2026-08-18, pure-K=16 chunks):
-pumping peaks at c_fraction=4 (Q=125.0 per beat) — a distinct
-metachronal optimum, ~1.6x the synchronous-beat flux (c_fraction=16 ==
-zero phase lag, Q=78.2).
+Result (validation/metachrony.json): pumping peaks at c_fraction=4
+(Q=125.0 per beat) — a distinct metachronal optimum, ~1.6x the
+synchronous-beat flux (c_fraction=16 == zero phase lag, Q=78.2).
 
 Usage: python scripts/sweep_metachrony.py [--out validation/metachrony.json]
 """
@@ -45,16 +43,8 @@ def main():
     for cf in (1, 2, 3, 4, 6, 8, 12, 16):
         cfg = SimConfig(c_fraction=cf, c_num=16, c_space=128, ydim=2048,
                         dtype="float32")
-        sim = MucociliarySim(cfg, backend="pallas", temporal=16)
-        st = sim.init_state()
-        # one beat period in bounded chunks; each chunk is a multiple of
-        # K=16 so every internal _MAX_SCAN split stays on the temporal
-        # fast path (a non-multiple chunk would run a single-step
-        # remainder scan — different perf mode than the sweep claims)
-        chunk = cfg.T // 10
-        assert chunk % 16 == 0 and chunk * 10 == cfg.T
-        for _ in range(10):
-            st = sim.run_chunk(st, chunk)
+        sim = MucociliarySim(cfg, backend="auto")
+        st = sim.run_chunk(sim.init_state(), cfg.T)  # one beat period
         q = float(st.q)
         finite = bool(jnp.isfinite(st.f).all())
         out[cf] = {"q_per_beat": q, "p_step": cfg.p_step, "finite": finite}

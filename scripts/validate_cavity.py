@@ -47,9 +47,9 @@ RUNS = {100: (64, 30000), 400: (96, 80000), 1000: (128, 200000)}
 def main():
     import jax
 
-    # TPU f32 einsums use reduced-precision MXU passes by default, which
-    # compounds over 1e5 steps into O(0.1) centreline errors; force full
-    # f32 precision for validation runs.
+    # reduced-precision f32 matmuls (TF32 on a GPU) compound over 1e5
+    # steps into O(0.1) centreline errors; force full f32 precision for
+    # validation runs.
     jax.config.update("jax_default_matmul_precision", "highest")
     from cuda_iblb_11_tpu.models.cavity import LidDrivenCavity
 

@@ -11,7 +11,7 @@ physics check (normalized-field correlation), exactly like the flux-curve
 regression — not a bit-level one.  Writes validation/fields_metrics.json;
 tests/test_golden_fields.py asserts the recorded correlation floors.
 
-Run:  python scripts/validate_fields.py   (TPU: ~2-4 min; CPU: slower)
+Run:  python scripts/validate_fields.py
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ def load_nominal(it):
 def main():
     import jax
 
-    # full f32 einsum precision on TPU (reduced MXU passes otherwise)
+    # full f32 matmul precision (TF32 on a GPU otherwise)
     jax.config.update("jax_default_matmul_precision", "highest")
     import jax.numpy as jnp
 

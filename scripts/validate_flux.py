@@ -4,7 +4,7 @@ Data/Nominals/flux_nom.dat (shape-level: the nominals are from a 2017 run
 with LENGTH=100 / 300x200, so only the normalized curve is comparable —
 SURVEY.md §4).
 
-Usage:  python scripts/validate_flux.py [--steps N] [--backend jnp|pallas]
+Usage:  python scripts/validate_flux.py [--steps N] [--backend auto|jnp|triton]
 
 Writes flux samples to stdout and prints the comparison metrics.
 """
@@ -38,7 +38,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=100000)
     ap.add_argument("--samples", type=int, default=100)
-    ap.add_argument("--backend", default="jnp", choices=["jnp", "pallas"])
+    ap.add_argument("--backend", default="jnp",
+                    choices=["auto", "jnp", "triton"])
     ap.add_argument("--dtype", default="float32")
     args = ap.parse_args()
 

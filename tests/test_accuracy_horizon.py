@@ -11,18 +11,15 @@ holds for horizons up to ~1,000 steps — every "<1e-5" claim in
 README/BASELINE.md states this horizon — and the full-beat science
 gate (flux < 1%) passes 27x over.
 
-At production scale (2048^2 on a real v5e), the single-step f32 kernel
-measured 4.4e-6 vs a 2048^2 f64 CPU oracle at 512 steps, and the primary
-benchmark mode (temporal K=16 + band super-kernel, full-precision MXU
-dots) 4.8e-6 from the single-step path with the deviation SATURATING
-(not growing) out to 32,768 steps — the growth law above is the binding
-envelope.  This test enforces the small-scale envelopes at 500 / 2,000 /
-4,000 steps so a precision regression (losing deviatoric storage, the
-anchored delta split, or an MXU precision override) fails CI rather than
-silently eroding the claim.
+At production scale chip_smoke.py compares the f32 main path with the f64
+oracle on the GPU at 2048^2 and 512 steps.  This test enforces the
+small-scale envelopes at 500 / 2,000 / 4,000 steps so a precision
+regression (losing deviatoric storage, the anchored delta split, or a
+reduced-precision contraction) fails CI rather than silently eroding the
+claim.
 
-bf16 fast mode: measured ~1e-2 velocity noise (bench.py reports the live
-number); the loose bound here documents its magnitude.
+bf16 fast mode: ~1e-2 velocity noise; the loose bound here documents its
+magnitude.
 """
 
 import jax.numpy as jnp
@@ -83,25 +80,6 @@ def test_bf16_fast_mode_noise_bound():
     stb = sb.run_chunk(sb.init_state(), 500)
     l2 = _rel_l2(_velocity(sb, stb), _velocity(s64, st64))
     assert 1e-4 < l2 < 5e-2, l2
-
-def test_band_super_f32_velocity_error_500_steps():
-    """The resident-band super-kernel (benchmark primary mode) re-associates
-    the IB contractions, so its f32 accuracy must be established directly:
-    measured 1.927e-6 vs the f64 oracle @500 steps (2026-08-16) —
-    indistinguishable from the per-sub-step fallback's 1.928e-6 — on the
-    smallest domain whose c_space=128 windows fit (384x256)."""
-    cfg64 = SimConfig(c_num=3, c_space=128, ydim=256, dtype="float64",
-                      storage="raw")
-    s64 = MucociliarySim(cfg64, backend="jnp")
-    st64 = s64.run_chunk(s64.init_state(), 500)
-
-    ssup = MucociliarySim(cfg64.replace(dtype="float32", storage="auto"),
-                          backend="pallas", temporal=4)
-    assert ssup._band_super is not None, "super path should engage here"
-    stsup = ssup.run_chunk(ssup.init_state(), 500)
-    l2 = _rel_l2(_velocity(ssup, stsup), _velocity(s64, st64))
-    assert l2 < 1.0e-5, l2  # the BASELINE bound at bench horizon
-
 
 def test_fullbeat_errors_are_measured_and_gated():
     # VERDICT r3 item 1: the full-beat (100,000-step) f32-vs-f64 errors

@@ -43,7 +43,7 @@ def test_cavity_is_steady():
 
 def test_recorded_cavity_sweep_metrics():
     # scripts/validate_cavity.py records the full Re in {100,400,1000}
-    # sweep (TPU, full matmul precision); assert the checked-in deviations
+    # sweep (full matmul precision); assert the checked-in deviations
     # vs Ghia.  Measured 2026-08-16: 0.0097 / 0.0083 / 0.0175 lid units.
     # Guards against committing a degraded regeneration; the live physics
     # is covered by the Re=100 run below (and the slow-marked full sweep).

@@ -1,6 +1,7 @@
 """CLI end-to-end (tiny run) and argument handling."""
 
 import numpy as np
+import pytest
 
 from cuda_iblb_11_tpu.cli import main
 
@@ -18,11 +19,9 @@ def test_cli_runs_and_writes_outputs(tmp_path):
 
 def test_cli_platform_flag(tmp_path):
     # --platform cpu pins the jax platform in-process before first
-    # backend use (r4: the supported way to run the f64 CPU oracle on a
-    # TPU host, and the escape hatch when TPU device discovery would
-    # hang on an unreachable plugin).  Under the test env the platform
-    # is already cpu, so this asserts the flag parses, applies, and the
-    # run still completes end-to-end.
+    # backend use (the way to run the f64 CPU oracle on a GPU host).
+    # Under the test env the platform is already cpu, so this asserts the
+    # flag parses, applies, and the run still completes end-to-end.
     rc = main([
         "1", "4", "48", "1.0", "1.0", "5", "0.002", "2", "0", "0",
         "--output", str(tmp_path), "--quiet", "--platform", "cpu",
@@ -164,32 +163,68 @@ def test_cli_domain_guard():
     assert main(["1", "2", "48", "1.0", "1.0", "5", "1", "10", "0", "0"]) == 1
 
 
-def test_cli_mesh_temporal_matches_single_device(tmp_path):
-    # The communication-avoiding sharded temporal path must be reachable
-    # from the CLI (--mesh Y,1 --temporal K --backend pallas) and produce
-    # the single-device flux series: 50 steps = 12 K=4 super-steps + 2
-    # remainder steps through the per-step sharded kernel.
+def test_cli_platform_gpu_without_gpu_fails(tmp_path, capsys):
+    # asking for the GPU and finding none is an error, never a quiet CPU
+    # run: no output is written
     import jax
-    import pytest
 
-    if len(jax.devices()) < 2:
-        pytest.skip("needs >= 2 virtual devices")
-    from cuda_iblb_11_tpu.parallel.sharded import ShardedTemporalSim
-    from cuda_iblb_11_tpu.runner import _make_sim
-    from cuda_iblb_11_tpu.core.config import SimConfig
+    saved = jax.config.jax_platforms
+    try:
+        rc = main(["1", "4", "48", "1.0", "1.0", "5", "0.002", "2", "0",
+                   "0", "--output", str(tmp_path), "--quiet",
+                   "--platform", "gpu"])
+    finally:
+        jax.config.update("jax_platforms", saved)
+    assert rc == 1
+    assert "--platform gpu" in capsys.readouterr().err
+    assert not (tmp_path / "Flux").exists()
 
-    cfg = SimConfig(c_num=3, c_space=128, ydim=288, dtype="float64")
-    sim = _make_sim(cfg, "pallas", "trt_split", 4, "2,1")
-    assert isinstance(sim, ShardedTemporalSim)  # no silent fallback
 
-    args = ["1", "3", "128", "1.0", "1.0", "5", "0.0005", "2", "0", "0",
-            "--quiet", "--dtype", "float64", "--ydim", "288"]
-    assert main(args + ["--output", str(tmp_path / "single")]) == 0
-    assert main(args + ["--output", str(tmp_path / "mesh"), "--mesh", "2,1",
-                        "--temporal", "4", "--backend", "pallas"]) == 0
-    a = np.loadtxt(tmp_path / "single" / "Flux" / "1_3_128_1_1x5-flux.dat")
-    b = np.loadtxt(tmp_path / "mesh" / "Flux" / "1_3_128_1_1x5-flux.dat")
-    np.testing.assert_allclose(b, a, rtol=1e-9, atol=1e-12)
+@pytest.mark.parametrize("env,want_env", [
+    ({"JAX_COMPILATION_CACHE_DIR": "/elsewhere/cache"}, True),
+    ({"JAX_COMPILATION_CACHE_DIR": ""}, False),
+    ({}, False),
+])
+def test_compile_cache_placement(env, want_env):
+    # set: the environment's directory, and nothing chosen in code;
+    # unset or empty: the fixed directory at the checkout's root
+    import os
+
+    from cuda_iblb_11_tpu.utils import compile_cache as cc
+
+    path, from_env = cc.compile_cache_dir(env)
+    assert from_env is want_env
+    if want_env:
+        assert path == "/elsewhere/cache"
+    else:
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert path == os.path.join(repo, ".jax_cache") == cc.DEFAULT_DIR
+
+
+@pytest.mark.parametrize("set_env", [True, False])
+def test_configure_compile_cache_sets_jax_config(set_env, monkeypatch,
+                                                 tmp_path):
+    import jax
+
+    from cuda_iblb_11_tpu.utils import compile_cache as cc
+
+    saved = jax.config.jax_compilation_cache_dir
+    if set_env:
+        monkeypatch.setenv(cc.ENV_VAR, str(tmp_path))
+    else:
+        monkeypatch.delenv(cc.ENV_VAR, raising=False)
+    try:
+        jax.config.update("jax_compilation_cache_dir", None)
+        got = cc.configure_compile_cache()
+        if set_env:
+            # jax reads the variable itself; code sets no other directory
+            assert got == str(tmp_path)
+            assert jax.config.jax_compilation_cache_dir is None
+        else:
+            assert got == cc.DEFAULT_DIR
+            assert jax.config.jax_compilation_cache_dir == cc.DEFAULT_DIR
+    finally:
+        jax.config.update("jax_compilation_cache_dir", saved)
 
 
 def test_cli_overlap_flag_variants(tmp_path):

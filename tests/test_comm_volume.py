@@ -1,46 +1,28 @@
-"""Machine-checked communication-volume claims (VERDICT r3 item 2).
+"""Machine-checked communication volume of the sharded step.
 
-The communication-avoiding temporal path documents (parallel/sharded.py,
-ShardedTemporalSim docstring; docs/PODS.md):
+Every step of ShardedMucociliarySim (parallel/sharded.py) exchanges 1-cell
+halos of f and of the force field with the four mesh neighbours (x ring
+first, then y ring over the x-extended block) and reduces the IB force
+gather and the flux column with psums over both mesh axes.  docs/PODS.md
+states the per-step count; this test holds the traced program to it.
 
-  * K-fold fewer halo MESSAGES than the per-step sharded path (one
-    ghost-row ring exchange per K steps instead of one per step);
-  * at K=16 the halo BYTE volume matches the per-step path exactly
-    (pad=16 ghost rows once vs 1 row sixteen times), while smaller K
-    trades up to 16/K x more bytes for the fewer messages;
-  * the x-sharded resident-band super-kernel runs all K band sub-steps
-    with zero collectives inside the kernel — the per-super-step
-    collective count is a constant independent of K.
-
-Real multi-chip hardware is unavailable in CI, so the claims are audited
-on the traced jaxpr of the compiled chunk bodies on the virtual-device
-mesh: every `ppermute`/`psum` equation is counted (scan trip counts
-multiplied through) together with its operand byte volume.  The numbers
-asserted here are per device: a ppermute of an [9, r, xl] f32 operand is
-one message of 36*r*xl bytes to one neighbour.
-
-The reference has no comm backend at all (single GPU, main.cu:395-396);
-these claims are about this framework's own scale-out design.
+The claims are audited on the traced jaxpr of the compiled chunk on the
+virtual-device mesh: every `ppermute`/`psum` equation is counted (scan trip
+counts multiplied through) together with its operand byte volume.  The
+numbers are per device: a ppermute of a [9, r, c] f32 operand is one
+message of 36*r*c bytes to one neighbour.
 """
 
 import jax
 import pytest
 
 from cuda_iblb_11_tpu.core.config import SimConfig
-from cuda_iblb_11_tpu.parallel.sharded import (
-    ShardedPallasSim, ShardedTemporalSim, make_mesh,
-)
+from cuda_iblb_11_tpu.parallel.sharded import ShardedMucociliarySim, make_mesh
 
 needs8 = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs >= 8 virtual devices")
 
-# smallest grid where the (2,1) band-super temporal leg engages
-# (yl = 144 >= force_band(128) + pad(16); X = 384 fits the 128-lane rule)
-CFG_Y = SimConfig(c_num=3, c_space=128, ydim=288, dtype="float32")
-# (2,2)-eligible geometry for the x-sharded super leg: xl=1024 is a
-# c_space=128 multiple and wide enough for the K=16 ghost-column reach
-# (gx=320: xl + 2*gx = 1664 <= XDIM = 2048)
-CFG_XY = SimConfig(c_num=16, c_space=128, ydim=288, dtype="float32")
+CFG = SimConfig(c_num=4, c_space=48, ydim=256, dtype="float32")
 
 
 def collective_entries(jaxpr, mult=1, acc=None):
@@ -75,145 +57,45 @@ def collective_stats(jaxpr, mult=1):
     return acc
 
 
-def chunk_stats(sim, n_steps):
+def _chunk_jaxpr(sim, n_steps):
     st = sim.init_state()
     fn = sim._make_chunk(n_steps)
-    jx = jax.make_jaxpr(fn)(st.f, st.force, st.lasts, st.q, st.it)
-    return collective_stats(jx.jaxpr)
+    return jax.make_jaxpr(fn)(st.f, st.force, st.lasts, st.q, st.it).jaxpr
 
 
-@needs8
-def test_temporal_k16_kfold_messages_and_byte_crossover():
-    K = 16
-    mesh = make_mesh(2, 1)
-    tsim = ShardedTemporalSim(CFG_Y, mesh, temporal=K)
-    assert tsim.resolved_config()["band_leg"] == "band_super_whole"
-    psim = ShardedPallasSim(CFG_Y, mesh)
-
-    t = chunk_stats(tsim, K)    # ONE super-step = K iterations
-    p = chunk_stats(psim, K)    # K per-step iterations
-
-    # one ghost exchange per super-step: 2 messages (up + down neighbour)
-    assert t["ppermute"][0] == 2
-    # K-fold fewer messages than the per-step path over the same K steps
-    assert p["ppermute"][0] == K * t["ppermute"][0]
-    # K=16 byte crossover: pad=16 ghost rows once == 1 halo row 16 times,
-    # exactly (both are 2 * 9 * 16 * xl * 4 bytes)
-    assert t["ppermute"][1] == p["ppermute"][1]
-    # scalar/force reductions also collapse K-fold (2 per super-step vs
-    # 4 per step: interpolate psum x/y + flux psum x/y)
-    assert t["psum"][0] <= 4
-    assert p["psum"][0] == 4 * K
-
-
-@needs8
-def test_temporal_small_k_byte_tradeoff():
-    # smaller K keeps the fixed pad: same 2 messages per super-step, so
-    # 16/K x more halo bytes than per-step over the same horizon
-    K = 8
-    mesh = make_mesh(2, 1)
-    tsim = ShardedTemporalSim(CFG_Y, mesh, temporal=K)
-    psim = ShardedPallasSim(CFG_Y, mesh)
-    t = chunk_stats(tsim, K)
-    p = chunk_stats(psim, K)
-    assert t["ppermute"][0] == 2
-    assert p["ppermute"][0] == K * t["ppermute"][0]
-    pad = tsim._ghost_pad
-    assert t["ppermute"][1] * K == p["ppermute"][1] * pad
-
-
-@needs8
-def test_xsharded_super_collectives_independent_of_k():
-    # the x-sharded resident-band super-kernel runs all K band sub-steps
-    # inside ONE launch with zero collectives inside: the per-super-step
-    # collective count must not grow with K (every exchange happens once,
-    # before/after the kernel), unlike the per-step path's 4K ppermutes
-    mesh = make_mesh(2, 2)
-    sims = {K: ShardedTemporalSim(CFG_XY, mesh, temporal=K)
-            for K in (8, 16)}
-    for sim in sims.values():
-        assert sim.resolved_config()["band_leg"] == "band_super_xsharded"
-    s8 = chunk_stats(sims[8], 8)
-    s16 = chunk_stats(sims[16], 16)
-    assert s8["ppermute"][0] == s16["ppermute"][0]
-    assert s8["psum"][0] == s16["psum"][0]
-
-    psim = ShardedPallasSim(CFG_XY, mesh)
-    p16 = chunk_stats(psim, 16)
-    # per-step: 4 ppermutes per iteration (x pair + y pair)
-    assert p16["ppermute"][0] == 4 * 16
-    assert s16["ppermute"][0] < p16["ppermute"][0] / 4
-
-
-def _expected_xsuper_volumes(sim, K):
-    """The EXACT per-super-step collective multiset of the x-sharded
-    resident-band super-step (parallel/sharded._super_body_xsuper),
-    derived from the sim's own geometry (all f32, 4 B/elem):
-
-      ppermute (10 = 5 neighbour pairs):
-        2 x [9, yl, xpad]            bulk f1 ghost columns (_x_extend)
-        2 x [9, pad, xl + 2*xpad]    bulk ghost ROW blocks (one per K steps)
-        2 x [9, band+pad_s, gx]      band block ghost columns
-        2 x [2, band, gx]            force ghost columns
-        2 x [K, 9, 8, xpad]          per-sub-step seam f1 for the bulk
-                                     kernel (8 seam rows per sub-step)
-      psum (3):
-        1 x [9, band+pad_s, xl]      y-replicated band assembly
-        2 x scalar                   flux ('x' then 'y')
-
-    Returns ({prim: sorted byte list}) for exact comparison."""
+def _halo_bytes(sim):
+    """Per-step ppermute operand bytes: f (9 planes) and force (2 planes),
+    each an x-ring of [c, yl, 1] columns then a y-ring of [c, 1, xl + 2]
+    rows, in both directions."""
     yl, xl = sim.yl, sim.xl
-    xpad, pad = sim._xpad, sim._ghost_pad
-    band = sim.cfg.force_band
-    rows = band + sim._band_pad_s
-    gx = sim._band_super_x.gx
-    pp = sorted(4 * n for n in (
-        9 * yl * xpad, 9 * yl * xpad,
-        9 * pad * (xl + 2 * xpad), 9 * pad * (xl + 2 * xpad),
-        9 * rows * gx, 9 * rows * gx,
-        2 * band * gx, 2 * band * gx,
-        K * 9 * 8 * xpad, K * 9 * 8 * xpad,
-    ))
-    ps = sorted(4 * n for n in (9 * rows * xl, 1, 1))
-    return {"ppermute": pp, "psum": ps}
-
-
-def _traced_volumes(sim, K):
-    st = sim.init_state()
-    fn = sim._make_chunk(K)
-    jx = jax.make_jaxpr(fn)(st.f, st.force, st.lasts, st.q, st.it)
-    out = {"ppermute": [], "psum": []}
-    for prim, mult, nbytes in collective_entries(jx.jaxpr):
-        assert mult == 1, (
-            f"{prim} inside a scan (mult={mult}) — a collective has "
-            f"leaked into the K-sub-step loop")
-        out[prim].append(nbytes)
-    return {k: sorted(v) for k, v in out.items()}
+    item = 4
+    per_plane = 2 * yl + 2 * (xl + 2)
+    return sorted(item * n for c in (9, 2) for n in (
+        c * yl, c * yl, c * (xl + 2), c * (xl + 2))), per_plane * 11 * item
 
 
 @needs8
-@pytest.mark.parametrize("K", [8, 16])
-def test_xsharded_super_exact_counts_and_bytes(K):
-    # VERDICT r4 item 8: the exact per-super-step collective multiset of
-    # band_super_xsharded — 10 ppermutes + 3 psums with the byte volumes
-    # documented in docs/PODS.md, none inside the K-sub-step scan
-    sim = ShardedTemporalSim(CFG_XY, make_mesh(2, 2), temporal=K)
-    assert sim.resolved_config()["band_leg"] == "band_super_xsharded"
-    got = _traced_volumes(sim, K)
-    want = _expected_xsuper_volumes(sim, K)
-    assert len(got["ppermute"]) == 10 and len(got["psum"]) == 3
-    assert got == want
+@pytest.mark.parametrize("n_y,n_x", [(2, 1), (2, 2), (2, 4), (4, 2), (1, 8)])
+@pytest.mark.parametrize("n_steps", [1, 5])
+def test_per_step_halo_messages_and_bytes(n_y, n_x, n_steps):
+    sim = ShardedMucociliarySim(CFG, make_mesh(n_y, n_x))
+    entries = [e for e in collective_entries(_chunk_jaxpr(sim, n_steps))
+               if e[0] == "ppermute"]
+    # 8 messages per step: f and force, x ring and y ring, both directions
+    assert sum(m for _, m, _ in entries) == 8 * n_steps
+    assert all(m == n_steps for _, m, _ in entries)
+    want, per_step = _halo_bytes(sim)
+    assert sorted(b for _, _, b in entries) == want
+    assert sum(b for _, _, b in entries) == per_step
 
 
 @needs8
-def test_xsharded_super_phase_general_exact_counts_and_bytes():
-    # the r4 phase-general variant (xl NOT a c_space multiple) must keep
-    # the identical collective structure — only gx (and pad_s) differ
-    cfg = SimConfig(c_num=10, c_space=256, ydim=288, dtype="float32")
-    sim = ShardedTemporalSim(cfg, make_mesh(2, 4), temporal=4)
-    assert sim._band_super_x is not None and sim._band_super_x.phase_general
-    assert sim.resolved_config()["band_leg"] == "band_super_xsharded_phase"
-    got = _traced_volumes(sim, 4)
-    want = _expected_xsuper_volumes(sim, 4)
-    assert len(got["ppermute"]) == 10 and len(got["psum"]) == 3
-    assert got == want
+@pytest.mark.parametrize("n_steps", [1, 5])
+def test_per_step_reductions(n_steps):
+    # IB force gather psum over x then y, flux psum over x then y
+    sim = ShardedMucociliarySim(CFG, make_mesh(2, 4))
+    entries = collective_entries(_chunk_jaxpr(sim, n_steps))
+    psums = sorted(b for prim, _, b in entries if prim == "psum")
+    assert psums == [4, 4] + [4 * CFG.ns * 2] * 2   # flux; F_s [Ns, 2]
+    assert collective_stats(_chunk_jaxpr(sim, n_steps))["psum"][0] == (
+        4 * n_steps)

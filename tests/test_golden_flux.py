@@ -1,5 +1,5 @@
 """Golden-flux shape regression against the checked-in validation curve
-(produced by scripts/validate_flux.py on TPU; see validation/README.md).
+(produced by scripts/validate_flux.py; see validation/README.md).
 
 The fast test checks OUR physics reproduces the checked-in curve's early
 segment; the full-beat golden comparison lives in validation/."""
@@ -46,8 +46,7 @@ def test_early_flux_matches_f64_golden():
     # golden (validation/flux_early_f64_c6.dat, 100-step samples).  The
     # measured f32 flux drift at 2000 steps is ~1e-5 relative (growth law
     # in tests/test_accuracy_horizon.py), so a 1e-3 gate has 100x margin
-    # while catching a 0.1% physics regression — the r2 VERDICT called the
-    # old 30%-tolerance TPU-curve check "sanity-level"; this replaces it.
+    # while catching a 0.1% physics regression.
     cfg = SimConfig(c_num=6, c_space=48, dtype="float32")
     sim = MucociliarySim(cfg, backend="jnp")
     gold = np.loadtxt(GOLD_F64)

@@ -165,9 +165,3 @@ def test_mucociliary_strict_parity_mode_runs():
     assert int(st.it) == 5
     assert np.isfinite(float(st.q))
     assert np.isfinite(np.asarray(st.f)).all()
-    # quirk mode composes with temporal blocking via the per-sub-step
-    # band leg (the windowed band super-kernel is periodic-only); the
-    # bit-level parity test lives in tests/test_temporal.py
-    tem = MucociliarySim(cfg, backend="pallas", temporal=2,
-                         ib_x_edge="reference")
-    assert tem._band_super is None

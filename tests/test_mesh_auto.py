@@ -1,8 +1,8 @@
-"""--mesh auto (VERDICT r4 item 7): pick the largest eligible (n_y, n_x)
-factorization of the visible devices — a POLICY mirroring --temporal auto's
-contract (pick + reason recorded in SimLog) — the scale-out analogue of the
-reference's per-cluster launch scripts hardcoding a geometry per machine
-(cilia6.sh:7-17).  Runs on the 8-virtual-device CPU mesh (conftest)."""
+"""--mesh auto: pick the most balanced (n_y, n_x) factorization of the
+visible devices that divides the grid (pick + reason recorded in SimLog) —
+the scale-out analogue of the reference's per-cluster launch scripts
+hardcoding a geometry per machine (cilia6.sh:7-17).  Runs on the
+8-virtual-device CPU mesh (conftest)."""
 
 import os
 
@@ -15,41 +15,42 @@ from cuda_iblb_11_tpu.runner import _make_sim, _resolve_auto_mesh, run
 needs_8_devices = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices")
 
-# 192x192 grid: every factorization of 8 divides it, none is
-# pallas-eligible (xl % 128).  1024-wide with ydim=256: (2,4) qualifies.
 CFG_SMALL = SimConfig(c_num=4, c_space=48, t_num=1.0, t_pow=5,
                       dtype="float32")
-CFG_WIDE = SimConfig(c_num=8, c_space=128, ydim=256, t_num=1.0, t_pow=5,
-                     dtype="float32")
 
 
 @needs_8_devices
-def test_auto_prefers_balanced_pallas_eligible():
-    mesh, reason = _resolve_auto_mesh(CFG_WIDE, backend="pallas")
-    assert mesh in ("2,4", "4,2"), mesh
-    assert "pallas-eligible" in reason
-    # balanced beats skewed: (2,4)/(4,2) over (1,8)/(8,1); x-major tie-break
-    assert mesh == "2,4"
+@pytest.mark.parametrize("c_num,c_space,ydim,want", [
+    (8, 128, 256, "2,4"),    # balanced wins; x-major on the (2,4)/(4,2) tie
+    (8, 128, 191, "1,8"),    # prime ydim: only ny=1 divides
+    (2, 97, 256, "4,2"),     # xdim=194 takes nx=2 but not nx=4
+    (3, 65, 256, "8,1"),     # odd xdim: only nx=1
+])
+def test_auto_mesh_pick_per_grid(c_num, c_space, ydim, want):
+    cfg = SimConfig(c_num=c_num, c_space=c_space, ydim=ydim, t_num=1.0,
+                    t_pow=5, dtype="float32")
+    mesh, reason = _resolve_auto_mesh(cfg)
+    assert mesh == want, (mesh, reason)
+    assert "balanced-first" in reason
 
 
-@needs_8_devices
-def test_auto_falls_back_to_jnp_when_no_pallas_shape_fits():
-    mesh, reason = _resolve_auto_mesh(CFG_SMALL, backend="pallas")
-    assert mesh == "2,4"
-    assert "no pallas-eligible factorization" in reason
+def test_triton_backend_refuses_a_mesh():
+    with pytest.raises(ValueError, match="one device"):
+        _make_sim(CFG_SMALL, backend="triton", forcing="trt_split",
+                  mesh="2,2")
 
 
 @needs_8_devices
 def test_auto_jnp_backend_picks_balanced():
-    mesh, reason = _resolve_auto_mesh(CFG_SMALL, backend="jnp")
+    mesh, reason = _resolve_auto_mesh(CFG_SMALL)
     assert mesh == "2,4"
-    assert "jnp sharded path" in reason
+    assert "balanced-first" in reason
 
 
 @needs_8_devices
 def test_auto_sim_carries_pick_and_reason():
     sim = _make_sim(CFG_SMALL, backend="jnp", forcing="trt_split",
-                    temporal=1, mesh="auto")
+                    mesh="auto")
     assert sim.mesh_requested == "auto"
     assert sim.mesh_resolved == "2,4"
     assert sim.resolved_config()["mesh"] == [2, 4]
@@ -73,6 +74,6 @@ def test_auto_unsharded_when_nothing_divides():
                     dtype="float32")
     if len(jax.devices()) == 1:
         pytest.skip("needs >1 devices")
-    mesh, reason = _resolve_auto_mesh(cfg, backend="jnp")
+    mesh, reason = _resolve_auto_mesh(cfg)
     assert mesh is None
     assert "unsharded" in reason

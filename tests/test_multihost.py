@@ -81,8 +81,3 @@ def test_two_process_matches_single_process(tmp_path):
     assert r0["q3"] == r_single["q3"], (r0["q3"], r_single["q3"])
     assert r0["q5"] == r_single["q5"], (r0["q5"], r_single["q5"])
     assert r0["checksum"] == r_single["checksum"]
-    # the pallas-sharded path (interpret-mode kernel + cross-process
-    # collectives) agrees with its single-process run too
-    assert r0["q_pallas"] == r1["q_pallas"]
-    assert r0["q_pallas"] == r_single["q_pallas"]
-    assert r0["checksum_pallas"] == r_single["checksum_pallas"]

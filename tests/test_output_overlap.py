@@ -1,5 +1,5 @@
-"""Compute/output overlap (VERDICT r4 item 2): interval snapshots ride a
-worker thread under the next chunk's device compute — the TPU analogue of
+"""Compute/output overlap: interval snapshots ride a worker thread under
+the next chunk's device compute — the counterpart of
 the reference's dedicated output stream (main.cu:793-809 o_stream/events,
 :938-996 snapshots while the next iterations' kernels are queued).
 
@@ -123,21 +123,22 @@ def test_worker_write_errors_surface(tmp_path):
 
 
 def test_overlap_auto_policy(monkeypatch):
-    """--overlap auto applies the MEASURED tradeoff
-    (validation/bigdata_e2e.json): on for npz always; off for the text
-    format only when the host lacks a spare core for the 19 s/snapshot
-    formatter (the reference's o_stream formatting always had one,
+    """--overlap auto: on for npz always; off for the text format only when
+    the process may use at most two cores, so the formatter has no spare
+    core (the reference's o_stream formatting always had one,
     main.cu:793-809).  Explicit requests — bools from API callers, on/off
     from the CLI — always win."""
     from cuda_iblb_11_tpu.runner import _resolve_overlap
 
-    monkeypatch.setattr(os, "cpu_count", lambda: 1)
+    # the cores this process may run on, not the machine's total
+    monkeypatch.setattr(os, "cpu_count", lambda: 64)
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: {0})
     on, reason = _resolve_overlap("auto", "npz")
     assert on and reason.startswith("auto")
     off, reason = _resolve_overlap("auto", "dat")
     assert not off and "core" in reason
 
-    monkeypatch.setattr(os, "cpu_count", lambda: 8)
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: set(range(8)))
     assert _resolve_overlap("auto", "dat")[0]
 
     # explicit requests are never overridden

@@ -137,3 +137,95 @@ def test_corrected_velocity_identity():
         np.asarray(0.5 * force / rho[None]),
         rtol=1e-6, atol=1e-15,
     )
+
+
+# ---- the XLA path in f32 against the f64 oracle --------------------------
+
+import jax  # noqa: E402
+import pytest  # noqa: E402
+
+
+def _random_f(ydim, xdim, storage, rng):
+    rho = 1.0 + 0.01 * rng.standard_normal((ydim, xdim))
+    u = 0.02 * rng.standard_normal((2, ydim, xdim))
+    f = np.asarray(ref.equilibrium(jnp.asarray(rho), jnp.asarray(u)))
+    f = f + 1e-4 * rng.standard_normal(f.shape) * W[:, None, None]
+    if storage == "deviatoric":
+        f = f - W[:, None, None]
+    force = 1e-4 * rng.standard_normal((2, ydim, xdim))
+    return f, force
+
+
+@pytest.mark.parametrize("ydim,xdim", [(16, 32), (24, 40)])
+@pytest.mark.parametrize("forcing", ["trt_split", "reference"])
+@pytest.mark.parametrize("storage", ["raw", "deviatoric"])
+@pytest.mark.parametrize("top", ["slip", "noslip"])
+def test_xla_path_f32_matches_f64_oracle(ydim, xdim, forcing, storage,
+                                         top):
+    # one step of the production XLA path in f32 against the same step in
+    # f64: the error is f32 rounding of the state (relative to the
+    # deviation from w_i under deviatoric storage), no worse
+    rng = np.random.default_rng(ydim * xdim)
+    f, force = _random_f(ydim, xdim, storage, rng)
+    walls = ref.WallSpec(top=top)
+    want = np.asarray(ref.lb_substep(
+        jnp.asarray(f), jnp.asarray(force), 2.8, 0.536, walls,
+        forcing=forcing, storage=storage)[0])
+    got = np.asarray(jax.jit(
+        lambda f, g: ref.lb_substep(f, g, 2.8, 0.536, walls,
+                                    forcing=forcing, storage=storage)[0])(
+        jnp.asarray(f, jnp.float32), jnp.asarray(force, jnp.float32)),
+        np.float64)
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel < (1e-6 if storage == "deviatoric" else 2e-7), rel
+
+
+@pytest.mark.parametrize("shape", [(9,), (9, 5), (9, 4, 6), (9, 3, 2, 7)])
+def test_lattice_sums_equal_einsum(shape):
+    # the written-out sums are the contractions they replace, exactly in f64
+    x = RNG.standard_normal(shape)
+    mom = np.einsum("i...,ic->c...", x, C.astype(np.float64))
+    np.testing.assert_allclose(np.asarray(ref.lattice_momentum(x)), mom,
+                               rtol=1e-14, atol=1e-14)
+    u = RNG.standard_normal((2,) + shape[1:])
+    cu = np.einsum("ic,c...->i...", C.astype(np.float64), u)
+    np.testing.assert_allclose(np.asarray(ref.lattice_cu(u)), cu,
+                               rtol=1e-14, atol=1e-14)
+
+
+@pytest.mark.parametrize("storage", ["raw", "deviatoric"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_equilibrium_parts_are_even_and_odd(storage, dtype):
+    rho = jnp.asarray(RNG.uniform(0.95, 1.05, (5, 6)), dtype)
+    u = jnp.asarray(0.05 * RNG.standard_normal((2, 5, 6)), dtype)
+    even, odd = ref.equilibrium_parts(rho, u, storage)
+    opp = np.asarray(OPPOSITE)
+    tol = 1e-6 if dtype == np.float32 else 1e-14
+    np.testing.assert_allclose(np.asarray(even), np.asarray(even)[opp],
+                               rtol=0, atol=0)
+    np.testing.assert_allclose(np.asarray(odd), -np.asarray(odd)[opp],
+                               rtol=0, atol=0)
+    full = np.asarray(ref.equilibrium(rho, u, storage))
+    w = W[:, None, None] if storage == "deviatoric" else 0.0
+    want = np.stack([scalar_equilibrium(float(r), float(a), float(b))
+                     for r, a, b in zip(np.ravel(rho), np.ravel(u[0]),
+                                        np.ravel(u[1]))], -1).reshape(
+        9, 5, 6) - w
+    np.testing.assert_allclose(full, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("tau", [0.8, 2.8068, 231.18])
+def test_trt_split_forcing_equals_pair_average(tau):
+    # the even/odd parts written out equal (s_i +- s_opp)/2 of the uniform
+    # Guo source, with (1 - 1/2tau) on the even part and (1 - 1/2tau2) on
+    # the odd part
+    tau2 = 1.0 / (12.0 * (tau - 0.5)) + 0.5
+    u = jnp.asarray(0.03 * RNG.standard_normal((2, 4, 5)))
+    g = jnp.asarray(1e-3 * RNG.standard_normal((2, 4, 5)))
+    s = np.asarray(ref.guo_forcing(u, g, tau, scheme="reference")) / (
+        1.0 - 1.0 / (2.0 * tau))
+    s_opp = s[np.asarray(OPPOSITE)]
+    want = ((1.0 - 1.0 / (2.0 * tau)) * 0.5 * (s + s_opp)
+            + (1.0 - 1.0 / (2.0 * tau2)) * 0.5 * (s - s_opp))
+    got = np.asarray(ref.guo_forcing(u, g, tau, tau2, scheme="trt_split"))
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-18)

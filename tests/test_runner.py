@@ -3,6 +3,7 @@
 import os
 
 import numpy as np
+import pytest
 
 from cuda_iblb_11_tpu.core.config import SimConfig
 from cuda_iblb_11_tpu.runner import run
@@ -139,38 +140,6 @@ def test_npz_checkpoint_save_is_atomic(tmp_path):
     assert int(st2.it) == 9
 
 
-def test_make_sim_warns_on_temporal_fallback(capsys):
-    # an ineligible --temporal mesh run must say so, not silently downgrade
-    import jax
-    import pytest
-
-    if len(jax.devices()) < 2:
-        pytest.skip("needs >= 2 virtual devices")
-    from cuda_iblb_11_tpu.parallel.sharded import (
-        ShardedMucociliarySim, ShardedPallasSim, ShardedTemporalSim,
-    )
-    from cuda_iblb_11_tpu.runner import _make_sim
-
-    # ydim=192 under (2,1) is ELIGIBLE since round 3 (the band may span
-    # shard boundaries) — no downgrade, no warning
-    cfg = SimConfig(c_num=3, c_space=128, ydim=192)
-    sim = _make_sim(cfg, "pallas", "trt_split", 4, "2,1")
-    assert isinstance(sim, ShardedTemporalSim)
-    assert capsys.readouterr().err == ""
-
-    # K above the 16-row ghost-pad budget -> genuinely ineligible ->
-    # per-step pallas + warning
-    sim = _make_sim(cfg, "pallas", "trt_split", 32, "2,1")
-    assert type(sim) is ShardedPallasSim
-    assert "falling back to the per-step sharded kernel" in (
-        capsys.readouterr().err)
-
-    # jnp sharded backend cannot honor temporal at all -> warning
-    sim = _make_sim(cfg, "jnp", "trt_split", 4, "2,1")
-    assert type(sim) is ShardedMucociliarySim
-    assert "temporal ignored" in capsys.readouterr().err
-
-
 def test_sharc_device_selection(tmp_path):
     # ShARC flag = reference's cudaSetDevice(3) (main.cu:395-396): the
     # single-device run pins to device index 3 when one exists (the CPU
@@ -192,87 +161,62 @@ def test_sharc_device_selection(tmp_path):
 
 def test_simlog_records_resolved_config(tmp_path):
     # VERDICT r3: SimLog must record the RESOLVED execution configuration
-    # (actual backend + kernel path after every auto/fallback decision),
-    # not just the requested one — the analogue of the reference logging
-    # its real launch config (main.cu:782-783).  On CPU, backend=auto
-    # falls back to the jnp oracle; the log must say so and why.
+    # (actual backend after every auto decision), not just the requested
+    # one — the analogue of the reference logging its real launch config
+    # (main.cu:782-783).  On CPU, backend=auto resolves to the jnp path;
+    # the log must say so and why.
     cfg = CFG.replace(i_pow=0.0001, p_num=1, bigdata=False)  # 10 steps
     out = run(cfg, output_root=str(tmp_path), backend="auto", quiet=True)
     log = open(os.path.join(str(tmp_path), "Raw", "4", "1",
                             "SimLog.txt")).read()
     assert "Backend: auto" in log                  # requested
     assert "Resolved backend: jnp" in log          # actual
-    assert "platform is cpu, not tpu" in log       # why
-    assert "Kernel path: jnp" in log
+    assert "compiles only for gpu" in log          # why
     assert "Storage: " in log
-    assert "Temporal K: 1" in log
+    assert "IB path: band_matmul" in log
     assert out["resolved"]["backend"] == "jnp"
-    assert out["resolved"]["band_leg"] == "jnp"
 
 
-def test_auto_reason_names_reference_default_lane_misalignment():
-    # The reference's own default invocation (main.cu:267-296 defaults:
-    # c_num=6, c_space=48 -> XDIM=288) fails the fused kernel's 128-lane
-    # constraint; the resolved config must name that, so `backend=auto`
-    # users know which path the reference's own arguments take.
+@pytest.mark.parametrize("n,max_scan,want", [
+    (10, 4, [4, 4, 2]),   # remainder chunk
+    (8, 4, [4, 4]),       # exact multiple
+    (3, 4, [3]),          # shorter than one chunk
+    (0, 4, []),
+])
+def test_run_chunk_splits_at_max_scan(n, max_scan, want, monkeypatch):
     from cuda_iblb_11_tpu.models.mucociliary import MucociliarySim
 
-    cfg = SimConfig(c_num=6, c_space=48, dtype="float32")
-    sim = MucociliarySim(cfg, backend="auto")
-    rc = sim.resolved_config()
-    assert rc["backend"] == "jnp"
-    assert "xdim=288 is not a multiple of 128" in rc["backend_reason"]
+    sim = MucociliarySim(SimConfig(c_num=4, c_space=48, dtype="float64",
+                                   storage="raw"), backend="jnp")
+    calls = []
+    real = sim._run_scan
+
+    def spy(state, k):
+        calls.append(k)
+        return real(state, k)
+
+    monkeypatch.setattr(sim, "_MAX_SCAN", max_scan)
+    monkeypatch.setattr(sim, "_run_scan", spy)
+    st = sim.run_chunk(sim.init_state(), n)
+    assert calls == want
+    assert int(st.it) == n
 
 
-def test_sharded_temporal_fallback_resolves_per_step(tmp_path, capsys):
-    # --temporal K ineligible for the K-step sharded path (K > 16 is
-    # rejected by the ghost kernel) must fall back to the per-step
-    # sharded kernel AND say so in the resolved config.
-    from cuda_iblb_11_tpu.runner import _make_sim
+def test_run_chunk_split_matches_one_scan(monkeypatch):
+    # splitting a chunk at _MAX_SCAN changes nothing but the compiled
+    # scan lengths: the kinematics restart from state.it and lasts
+    from cuda_iblb_11_tpu.models.mucociliary import MucociliarySim
 
-    cfg = CFG.replace(c_space=64)  # XDIM=256 -> xl=128 on a (2,2) mesh
-    sim = _make_sim(cfg, "pallas", "trt_split", 64, "2,2")
-    rc = sim.resolved_config()
-    assert rc["band_leg"] == "sharded_per_step"
-    assert rc["temporal"] == 1
-    assert rc["mesh"] == [2, 2]
-
-
-def test_resume_notes_temporal_k_switch(tmp_path):
-    # Resuming under a different resolved temporal K switches kernel path
-    # mid-run (not bit-identical across K); the SimLog must say so
-    # (ADVICE r4: --temporal auto makes the switch easy to land silently).
-    cfg_half = CFG.replace(i_pow=0.002, p_num=2)
-    run(cfg_half, output_root=str(tmp_path / "b"), quiet=True,
-        checkpoint_every=200)
-    root = os.path.join(str(tmp_path / "b"), "Raw", "4", "1")
-    ck = os.path.join(root, "checkpoint.npz")
-    # emulate an original run that resolved to K=16 (the jnp CI backend
-    # always resolves to 1, so the original line is planted)
-    simlog = os.path.join(root, "SimLog.txt")
-    with open(simlog, "a") as fh:
-        fh.write("Temporal K: 16 (auto: K=16 (largest eligible))\n")
-    run(CFG, output_root=str(tmp_path / "b"), quiet=True, resume_from=ck)
-    log = open(simlog).read()
-    assert "resumed with temporal K=1 (original run: K=16)" in log
-
-    # same-K resume stays quiet
-    run(cfg_half, output_root=str(tmp_path / "c"), quiet=True,
-        checkpoint_every=200)
-    ck2 = os.path.join(str(tmp_path / "c"), "Raw", "4", "1",
-                       "checkpoint.npz")
-    run(CFG, output_root=str(tmp_path / "c"), quiet=True, resume_from=ck2)
-    log2 = open(os.path.join(str(tmp_path / "c"), "Raw", "4", "1",
-                             "SimLog.txt")).read()
-    assert "resumed with temporal" not in log2
+    cfg = SimConfig(c_num=4, c_space=48, dtype="float64", storage="raw")
+    one = MucociliarySim(cfg, backend="jnp")
+    a = one.run_chunk(one.init_state(), 7)
+    split = MucociliarySim(cfg, backend="jnp")
+    monkeypatch.setattr(split, "_MAX_SCAN", 3)
+    b = split.run_chunk(split.init_state(), 7)
+    np.testing.assert_allclose(np.asarray(b.f), np.asarray(a.f),
+                               rtol=1e-12, atol=1e-15)
+    np.testing.assert_allclose(np.asarray(b.lasts), np.asarray(a.lasts),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(float(b.q), float(a.q), rtol=1e-12)
 
 
-def test_last_simlog_temporal_k_parsing(tmp_path):
-    from cuda_iblb_11_tpu.runner import _last_simlog_temporal_k
-    p = str(tmp_path / "SimLog.txt")
-    assert _last_simlog_temporal_k(p) is None  # missing file
-    with open(p, "w") as fh:
-        fh.write("Size: 192x192\nTemporal K: 4\n")
-        fh.write("Resumed from checkpoint at iteration 200\n")
-        fh.write("Temporal K: 16 (auto: K=16 (largest eligible))\n")
-    assert _last_simlog_temporal_k(p) == 16  # last line wins

@@ -133,3 +133,22 @@ def test_bfloat16_fast_mode():
     assert stb.f.dtype == jnp.bfloat16
     assert bool(jnp.isfinite(stb.f.astype(jnp.float32)).all())
     assert abs(float(stb.q) - float(st32.q)) < 0.02 * abs(float(st32.q))
+
+
+def test_equal_sims_share_compiled_chunks():
+    # sims built from equal arguments compare equal, so the jitted chunk
+    # (self is static) is compiled once per process; any differing
+    # argument keeps them apart
+    cfg = SimConfig(c_num=4, c_space=48, dtype="float64", storage="raw")
+    a = MucociliarySim(cfg, backend="jnp")
+    b = MucociliarySim(cfg, backend="jnp")
+    assert a == b and hash(a) == hash(b)
+    for other in (MucociliarySim(cfg, backend="jnp", forcing="reference"),
+                  MucociliarySim(cfg, backend="jnp", ib_x_edge="reference"),
+                  MucociliarySim(cfg.replace(c_space=50), backend="jnp"),
+                  MucociliarySim(cfg, backend="jnp", pattern="mucus")):
+        assert a != other
+    a.run_chunk(a.init_state(), 3)
+    before = MucociliarySim._run_scan._cache_size()
+    b.run_chunk(b.init_state(), 3)
+    assert MucociliarySim._run_scan._cache_size() == before
